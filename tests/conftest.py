@@ -35,3 +35,8 @@ def pytest_sessionfinish(session, exitstatus):
             "the session (REPRO_LOCKCHECK=1)",
             file=sys.stderr,
         )
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (Hopper) and nvcc; skips without")
