@@ -4,23 +4,40 @@
 Phases, each of which makes the script exit non-zero when it fails:
   1. device: CUDA must be present; prints the card's name and power limit;
   2. build: compiles every CUDA kernel of the port from the sources in
-     this checkout (nvcc, sm_90a) and times it;
-  3. kernels: each kernel against its plain PyTorch version on the card, at
+     this checkout (nvcc, sm_90a, one process per source, all started
+     together) and prints each kernel's registers, spills and build time
+     beside the wall time of the whole build;
+  3. kernels: each kernel against its plain PyTorch version on the card,
+     element by element within the limits stated below: flash attention at
      the reference test cases, ragged lengths and the gemma2-27b prefill
-     shapes, element by element within the limits stated below;
-  4. serve: gemma2-27b at full width (depth cut to 4 layers, two local/global
-     periods) serves 4 prompts of 4600 tokens plus 32 greedy tokens through
-     ``repro_torch.launch.serve.serve``; the kernel's launch count over that
-     run must be one per layer, the logits finite, and the prefill logits
-     must match the same model run through the plain attention;
-  5. timing: each kernel, its plain version and the library call that
-     computes the same function, at the shapes the serve path gives it.
+     shapes; the selective scan at the reference test cases in f32 and
+     bf16, the model's mixed types and ragged cases (its falcon-mamba-7b
+     prefill shape is checked in phase 5);
+  4. serve, one cell after the other (``CELLS``), each through
+     ``repro_torch.launch.serve.serve``: 4 prompts of 4600 tokens plus 32
+     greedy tokens, random weights from seed 0. gemma2-27b at full width
+     with its depth cut to 4 layers; falcon-mamba-7b at full width and full
+     depth (64 layers). The cell's kernel must launch once per layer (its
+     prefill), the logits must be finite, and the prefill logits must
+     match the same model served through the kernel's plain version; then
+     a warm run gives the serve times. In falcon-mamba-7b's plain-scan run
+     the kernel also runs beside the plain scan in lockstep, on each
+     layer's own input, and is held to the scan's per-element limit there;
+     that run also reads the residual stream after every layer. A last
+     run of that cell, its scan outputs nudged by one bf16 step in a small
+     share, reads how far its logits gate lets a kernel's rounding stray;
+  5. timing: each kernel, checked once more against its plain version,
+     then timed with its plain version, its bound and the library call
+     that computes the same function (where there is one), at the shapes
+     the serve path gives it.
 
 The last lines are a JSON summary of the kernels, the card line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -36,6 +53,10 @@ SRC = ROOT / "src"
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 FMA, HBM3.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# The SFU (MUFU) computes 16 exponentials a clock per SM (NVIDIA's table of
+# arithmetic throughput for compute capability 9.0): 132 SMs at the 1.98 GHz
+# boost clock the data sheet's 67 TFLOP/s fp32 assumes.
+PEAK_EXPS = 132 * 16 * 1.98e9
 # kernel against its plain version on the same input values, the plain one
 # left in f32: |err| <= REL * |ref| + ATOL per element. ATOL covers fp32 sums
 # taken in another order; a bf16 output rounded to nearest even is within half
@@ -43,12 +64,31 @@ PEAK_BYTES = 3.35e12
 # (truncating instead of rounding misses this by up to a whole step).
 ATOL = 2e-5
 REL = {"float32": 0.0, "bfloat16": 2.0 ** -8}
-# serve: prefill logits of the kernel path against the plain-attention path,
-# both in bf16 compute: max |err| <= LOGITS_REL * mean |logit| of the plain path
+# selective scan: y and h_last must equal the plain version's result, rounded
+# to the kernel's output dtype, element for element. The kernel performs the
+# plain version's roundings in its order (no FMA contraction, the state sum by
+# halving, expf as torch.exp), so any difference is a departure from the plain
+# arithmetic; 64 random-weight mamba layers amplify a one-ulp difference in y
+# until the served logits are unrelated, so nothing looser would let phase 4
+# hold this cell's served model to its plain path (the lockstep run of phase 4
+# prints that growth). (Against the plain result in f32, a bf16 y is then
+# within half a bf16 step; the reference's own limits are 5e-5 for f32 and
+# 5e-2 for bf16.)
+# serve: prefill logits of the kernel path against the plain path, both in
+# bf16 compute: max |err| <= LOGITS_REL * mean |logit| of the plain path
 LOGITS_REL = 0.125
+# the nudge probe of the falcon-mamba cell moves one scan output in this many
+NUDGE_EVERY = 1024
 
 GEMMA_SHAPE = dict(Hq=32, Hkv=16, D=128, scale=(4608 / 32) ** -0.5, cap=50.0)
-SERVE = dict(batch=4, prompt_len=4600, new_tokens=32, n_layers=4, seed=0)
+SERVE = dict(arch="gemma2-27b", batch=4, prompt_len=4600, new_tokens=32,
+             n_layers=4, seed=0, kernel="flash_attention",
+             reduced="n_layers 46 -> 4 (two local/global periods, stacked "
+                     "scan layout): 46 layers of f32 params do not fit 80 GB")
+SERVE_MAMBA = dict(arch="falcon-mamba-7b", batch=4, prompt_len=4600,
+                   new_tokens=32, n_layers=64, seed=0, kernel="ssm_scan",
+                   reduced="none: full depth, 64 layers (stacked scan layout)")
+CELLS = (SERVE, SERVE_MAMBA)
 
 
 def log(msg: str) -> None:
@@ -65,6 +105,13 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def cell_config(cell: dict):
+    """The cell's model: the registry's config at the cell's depth."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(cell["arch"]),
+                               n_layers=cell["n_layers"])
 
 
 def visible_keys(S: int, causal: bool, window: int) -> int:
@@ -85,12 +132,44 @@ def attention_bound_ms(B, S, Hq, Hkv, D, causal, window, dtype) -> tuple[float, 
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def scan_bound_ms(inputs, outputs) -> tuple[float, str, dict]:
+    """Least time for one scan call: the bytes of every input read once and
+    every output written once over the HBM rate, against the operations:
+    B*S*di*N exponentials over the SFU rate, and the fp32 arithmetic around
+    them (dt*A, decay*h, dx*B_t, h*C_t: 6 flops per state update, plus
+    dt*x per channel) over the fp32 peak. The larger of the three."""
+    xi, A = inputs[0], inputs[4]
+    B, S, di = xi.shape
+    N = A.shape[1]
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    exps = B * S * di * N
+    flops = B * S * di * (6 * N + 1)
+    times = {"bytes": nbytes / PEAK_BYTES, "exps": exps / PEAK_EXPS,
+             "flops": flops / PEAK_FLOPS["float32"]}
+    worst = max(times, key=times.get)
+    detail = {"bytes": nbytes, "exps": exps, "flops": flops,
+              **{f"{k}_ms": v * 1e3 for k, v in times.items()}}
+    return times[worst] * 1e3, ("bytes" if worst == "bytes" else "operations"), detail
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, value):
+    """Replace ``module.name`` by ``value`` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repo")
     sys.path.insert(0, str(SRC))
     import torch
 
+    t_start = time.perf_counter()
     # -- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -102,27 +181,42 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, build, reset_launches
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
     from repro_torch.launch.serve import serve
     from repro_torch.models import attention as attention_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer as transformer_mod
 
     # -- 2. build ------------------------------------------------------------
+    def timed_build(name: str) -> tuple[str, float]:
+        t = time.perf_counter()
+        return build.build(name), time.perf_counter() - t
+
     t0 = time.perf_counter()
-    reports = {name: build.build(name) for name in build.SOURCES}
-    log(f"build: {sorted(build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
-    for name, rep in reports.items():
+    with concurrent.futures.ThreadPoolExecutor(len(build.SOURCES)) as pool:
+        futures = {name: pool.submit(timed_build, name) for name in build.SOURCES}
+        reports = {name: f.result() for name, f in futures.items()}
+    build_s = {name: secs for name, (_, secs) in reports.items()}
+    log(f"build: {sorted(build.SOURCES)} in {time.perf_counter() - t0:.1f} s "
+        f"wall, in parallel; each nvcc alone took "
+        f"{json.dumps({k: round(v, 1) for k, v in build_s.items()})} s "
+        f"(sum {sum(build_s.values()):.1f} s)")
+    for name, (rep, _) in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
     def qkv(B, Sq, Sk, Hq, Hkv, D, dtype):
-        mk = lambda S, H: torch.randn((B, S, H, D), generator=gen,  # noqa: E731
-                                      device=dev, dtype=torch.float32).to(dtype)
-        return mk(Sq, Hq), mk(Sk, Hkv), mk(Sk, Hkv)
+        return (randn(B, Sq, Hq, D).to(dtype), randn(B, Sk, Hkv, D).to(dtype),
+                randn(B, Sk, Hkv, D).to(dtype))
 
     def compare(q, k, v, what, **kw) -> tuple[float, float]:
         """Kernel against the plain version on the same input values, in f32;
@@ -144,7 +238,49 @@ def main() -> None:
             fail(f"flash_attention disagrees with its plain version: {what} {dname}")
         return max_err, mean_ref
 
-    # -- 3. kernel against its plain version -----------------------------------
+    def scan_inputs(B, S, di, N, x_dt, dt_dt, bc_dt, dt_rank=0):
+        """The reference test's distribution (dt = softplus(normal) * 0.1,
+        A = -exp(0.2 * normal)); Bm and Cm are column slices of one
+        (B, S, dt_rank + 2N) buffer, as the model's x_proj output gives them."""
+        xi = randn(B, S, di).to(x_dt)
+        dt = (torch.nn.functional.softplus(randn(B, S, di)) * 0.1).to(dt_dt)
+        bc = randn(B, S, dt_rank + 2 * N).to(bc_dt)
+        Bm, Cm = bc[..., dt_rank:dt_rank + N], bc[..., dt_rank + N:]
+        A = -torch.exp(randn(di, N) * 0.2)
+        h0 = randn(B, di, N)
+        return xi, dt, Bm, Cm, A, h0
+
+    def compare_scan(inputs, what) -> tuple[float, float]:
+        """Scan kernel against the plain version on the same input values, in
+        f32; y and h_last must equal the plain result rounded to their dtype.
+        Returns (max |err| of y against the f32 plain y, mean |ref| of y)."""
+        xi = inputs[0]
+        types = "/".join(str(t.dtype).split(".")[-1] for t in inputs[:3])
+        y, h = scan_ops.selective_scan(*inputs)
+        torch.cuda.synchronize()
+        y_p, h_p = ssm_scan_ref(*(t.float() for t in inputs))
+        torch.cuda.synchronize()
+        if y.shape != y_p.shape or y.dtype != xi.dtype or h.shape != h_p.shape \
+                or h.dtype != torch.float32:
+            fail(f"scan kernel output y {tuple(y.shape)} {y.dtype}, h_last "
+                 f"{tuple(h.shape)} {h.dtype}")
+        res = {}
+        for name, got, want in (("y", y, y_p), ("h_last", h, h_p)):
+            err = (got.float() - want).abs()
+            same = got == want.to(got.dtype)
+            ok = bool(same.all())
+            res[name] = (float(err.max()), float(want.abs().mean()), ok)
+            log(f"ssm_scan {types} (xi/dt/BC) {what} {name}: share equal to "
+                f"the plain result in {str(got.dtype).split('.')[-1]} "
+                f"{float(same.float().mean())} (limit: all); max|err| against "
+                f"the f32 plain result {res[name][0]:.3g} (at most half a "
+                f"step of the output dtype), mean|ref| {res[name][1]:.3g} "
+                f"{'ok' if ok else 'MISMATCH'}")
+        if not (res["y"][2] and res["h_last"][2]):
+            fail(f"ssm_scan disagrees with its plain version: {what} {types}")
+        return res["y"][0], res["y"][1]
+
+    # -- 3. kernels against their plain versions ---------------------------------
     cases = [  # the reference's cases (tests/test_kernels.py), then ragged ones
         dict(B=2, Sq=256, Sk=256, Hq=4, Hkv=2, D=64, window=0, cap=0.0, causal=True),
         dict(B=1, Sq=512, Sk=512, Hq=8, Hkv=1, D=128, window=0, cap=50.0, causal=True),
@@ -171,70 +307,24 @@ def main() -> None:
             del q, k, v
     torch.cuda.empty_cache()
 
-    # -- 4. the serve path -----------------------------------------------------
-    cfg = dataclasses.replace(get_config("gemma2-27b"), n_layers=SERVE["n_layers"])
-    log(f"serve: {cfg.name} at published widths (d_model {cfg.d_model}, heads "
-        f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}, window {cfg.attn_window}, caps "
-        f"{cfg.attn_softcap}/{cfg.logit_softcap}); reduced: n_layers 46 -> "
-        f"{cfg.n_layers} (two local/global periods, stacked scan layout)")
-    kw = dict(batch=SERVE["batch"], prompt_len=SERVE["prompt_len"],
-              new_tokens=SERVE["new_tokens"], seed=SERVE["seed"], device=dev,
-              log=log)
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    first = serve(cfg, **kw)
-    launches = dict(LAUNCHES)
-    log(f"serve launches: {launches}")
-    if launches["flash_attention"] != cfg.n_layers:
-        fail(f"flash_attention launched {launches['flash_attention']} times on "
-             f"the serve path, want {cfg.n_layers} (one per layer's prefill)")
-    params, prompts = first["params"], first["prompts"]
-    B, N, V = SERVE["batch"], SERVE["new_tokens"], cfg.vocab_size
-    lg = first["prefill_logits"]
-    if lg.shape != (B, V) or not bool(torch.isfinite(lg).all()):
-        fail(f"prefill logits {tuple(lg.shape)} not finite or misshaped")
-    toks = first["tokens"]
-    if toks.shape != (B, N) or int(toks.min()) < 0 or int(toks.max()) >= V:
-        fail(f"generated tokens {tuple(toks.shape)} out of range")
+    mcfg = cell_config(SERVE_MAMBA)
+    scan_shape = dict(B=SERVE_MAMBA["batch"], S=SERVE_MAMBA["prompt_len"],
+                      di=mcfg.d_inner, N=mcfg.ssm.d_state)
+    mixed = (torch.bfloat16, torch.float32, torch.bfloat16)   # the model's types
+    scan_cases = [(shape, (dtype,) * 3) for dtype in (torch.float32, torch.bfloat16)
+                  for shape in ((2, 64, 256, 16), (1, 100, 300, 8),
+                                (2, 128, 512, 16))]   # tests/test_kernels.py
+    scan_cases += [((2, 200, 1000, 16), mixed),
+                   ((3, 1, 77, 16), mixed),           # ragged: S = 1, di % 32 != 0
+                   ((1, 130, 100, 5), mixed)]         # ragged S, di and N
+    scan_worst = {}
+    for shape, types in scan_cases:
+        err, _ = compare_scan(scan_inputs(*shape, *types), f"B,S,di,N={shape}")
+        dname = str(types[0]).split(".")[-1]
+        scan_worst[dname] = max(scan_worst.get(dname, 0.0), err)
+    log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
-    # the same model, params and prompts through the plain attention
-    attention_mod.gqa_attention = ops.gqa_attention_ref
-    try:
-        reset_launches()
-        plain = serve(cfg, **kw, params=params, prompts=prompts)
-    finally:
-        attention_mod.gqa_attention = ops.gqa_attention
-    if LAUNCHES["flash_attention"] != 0:
-        fail("the plain-attention run launched the kernel")
-    ref_lg = plain["prefill_logits"].float()
-    logit_err = float((lg.float() - ref_lg).abs().max())
-    logit_mean = float(ref_lg.abs().mean())
-    agree = int((toks == plain["tokens"]).sum())
-    log(f"serve: prefill logits kernel vs plain max|err| {logit_err:.3g}, "
-        f"mean|logit| {logit_mean:.3g}, max|logit| {float(ref_lg.abs().max()):.3g} "
-        f"(limit {LOGITS_REL}*mean|logit| = {LOGITS_REL * logit_mean:.3g}); "
-        f"greedy tokens agreeing {agree}/{B * N}")
-    if not logit_err <= LOGITS_REL * logit_mean:
-        fail("prefill logits of the kernel path disagree with the plain path")
-
-    # a second kernel-path run, warm, for the serve times
-    reset_launches()
-    timed = serve(cfg, **kw, params=params, prompts=prompts)
-    if LAUNCHES["flash_attention"] != cfg.n_layers:
-        fail(f"timed run launched the kernel {LAUNCHES['flash_attention']} times")
-    lat = np.asarray(timed["decode_ms"])
-    serve_stats = {
-        "prefill_ms": timed["prefill_ms"], "plain_prefill_ms": plain["prefill_ms"],
-        "decode_p50_ms": float(np.percentile(lat, 50)),
-        "decode_p99_ms": float(np.percentile(lat, 99)),
-        "tokens_agree": agree, "tokens": B * N,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    log(f"serve (warm): {json.dumps(serve_stats)}")
-    del first, plain, timed, params, lg
-    torch.cuda.empty_cache()
-
-    # -- 5. timing at the serve path's shapes ------------------------------------
+    # -- 4. + 5. each cell: serve, then its kernel's timing ----------------------
     def time_ms(fn, reps=3) -> float:
         fn()
         torch.cuda.synchronize()
@@ -247,11 +337,123 @@ def main() -> None:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
+    class Lockstep:
+        """Serves the plain scan and runs the kernel beside it on each call's
+        inputs (each mamba layer's prefill), so every layer's kernel output is
+        held to the plain one on that layer's real input, however far the
+        deep model has grown the residual stream; also reads mean |residual|
+        after every prefill layer. Its kernel launches are comparisons."""
+
+        def __init__(self):
+            self.layers, self.residual = [], []
+            self._block = transformer_mod.apply_block
+
+        def scan(self, *inputs):
+            y_p, h_p = ssm_scan_ref(*inputs)
+            y_k, h_k = scan_ops.selective_scan(*inputs)
+            self.layers.append(dict(
+                y_equal=float((y_k == y_p).float().mean()),
+                h_equal=float((h_k == h_p).float().mean()),
+                y_max_err=float((y_k.float() - y_p.float()).abs().max()),
+                y_mean_abs=float(y_p.float().abs().mean())))
+            return y_p, h_p
+
+        def block(self, kind, p, x, **kw):
+            out, cache = self._block(kind, p, x, **kw)
+            if x.shape[1] > 1:
+                self.residual.append(float(out.abs().mean(dtype=torch.float32)))
+            return out, cache
+
+        @contextlib.contextmanager
+        def swap(self):
+            with swapped(ssm_mod, "selective_scan", self.scan), \
+                    swapped(transformer_mod, "apply_block", self.block):
+                yield
+
+    def serve_cell(cell, plain_swap, plain_launches=None,
+                   probe=None) -> tuple[dict, dict]:
+        """Serve the cell through its kernel, then through the kernel's plain
+        version (``plain_swap``; it launches ``plain_launches``, by default
+        none), then warm, then ``probe(cfg, serve kwargs, first run)`` if
+        given, whose readings join the stats. Returns (stats, launches of the
+        first run)."""
+        cfg = cell_config(cell)
+        name = cell["kernel"]
+        log(f"serve: {cfg.name} at published widths ({json.dumps(dataclasses.asdict(cfg))}); "
+            f"reduced: {cell['reduced']}")
+        kw = dict(batch=cell["batch"], prompt_len=cell["prompt_len"],
+                  new_tokens=cell["new_tokens"], seed=cell["seed"], device=dev,
+                  log=log)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        first = serve(cfg, **kw)
+        launches = dict(LAUNCHES)
+        log(f"serve launches: {launches}")
+        want = {k: (cfg.n_layers if k == name else 0) for k in launches}
+        if launches != want:
+            fail(f"{cfg.name} serve path launched {launches}, want {want} "
+                 f"(one {name} per layer's prefill)")
+        params, prompts = first["params"], first["prompts"]
+        B, N, V = cell["batch"], cell["new_tokens"], cfg.vocab_size
+        lg = first["prefill_logits"]
+        if lg.shape != (B, V) or not bool(torch.isfinite(lg).all()):
+            fail(f"prefill logits {tuple(lg.shape)} not finite or misshaped")
+        toks = first["tokens"]
+        if toks.shape != (B, N) or int(toks.min()) < 0 or int(toks.max()) >= V:
+            fail(f"generated tokens {tuple(toks.shape)} out of range")
+
+        # the same model, params and prompts through the kernel's plain version
+        with plain_swap:
+            reset_launches()
+            plain = serve(cfg, **kw, params=params, prompts=prompts)
+        if LAUNCHES != (plain_launches or {k: 0 for k in launches}):
+            fail(f"the plain run launched {dict(LAUNCHES)}")
+        ref_lg = plain["prefill_logits"].float()
+        logit_err = float((lg.float() - ref_lg).abs().max())
+        logit_mean = float(ref_lg.abs().mean())
+        agree = int((toks == plain["tokens"]).sum())
+        log(f"serve: prefill logits kernel vs plain max|err| {logit_err:.3g}, "
+            f"mean|logit| {logit_mean:.3g}, max|logit| "
+            f"{float(ref_lg.abs().max()):.3g} (limit {LOGITS_REL}*mean|logit| = "
+            f"{LOGITS_REL * logit_mean:.3g}); greedy tokens agreeing "
+            f"{agree}/{B * N}")
+        if not logit_err <= LOGITS_REL * logit_mean:
+            fail("prefill logits of the kernel path disagree with the plain path")
+        peak_all = torch.cuda.max_memory_allocated() / 1e9
+
+        # a second kernel-path run, warm, for the serve times
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        timed = serve(cfg, **kw, params=params, prompts=prompts)
+        if LAUNCHES != want:
+            fail(f"timed run launched {dict(LAUNCHES)}, want {want}")
+        lat = np.asarray(timed["decode_ms"])
+        stats = {
+            "config": f"{cfg.name} n_layers={cfg.n_layers}",
+            "prefill_ms": timed["prefill_ms"], "plain_prefill_ms": plain["prefill_ms"],
+            "decode_p50_ms": float(np.percentile(lat, 50)),
+            "decode_p99_ms": float(np.percentile(lat, 99)),
+            "logits_max_abs_err": logit_err, "logits_mean_abs": logit_mean,
+            "tokens_agree": agree, "tokens": B * N,
+            "peak_mem_gb": peak_all,
+            "warm_run_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"serve (warm): {json.dumps(stats)}")
+        if probe is not None:
+            stats.update(probe(cfg, kw, first))
+        return stats, launches
+
+    serve_stats = {}
+    # gemma2-27b: flash attention
+    serve_stats[SERVE["arch"]], fa_launches = serve_cell(
+        SERVE, swapped(attention_mod, "gqa_attention", ops.gqa_attention_ref))
+    torch.cuda.empty_cache()
+
     Bs, S = SERVE["batch"], SERVE["prompt_len"]
     g = GEMMA_SHAPE
+    window_local = cell_config(SERVE).attn_window
     q, k, v = qkv(Bs, S, S, g["Hq"], g["Hkv"], g["D"], torch.bfloat16)
     t = {}
-    for name, window in (("local", cfg.attn_window), ("global", 0)):
+    for name, window in (("local", window_local), ("global", 0)):
         akw = dict(scale=g["scale"], softcap=g["cap"], causal=True, window=window)
         err, mean_ref = compare(q, k, v, f"serve shape B={Bs} S={S} ({name})",
                                 **akw)
@@ -273,13 +475,80 @@ def main() -> None:
     cap0_ms = time_ms(lambda: ops.gqa_attention(q, k, v, **nocap))
     log(f"time global cap 0: kernel {cap0_ms:.3f} ms, "
         f"scaled_dot_product_attention {library_ms} ms")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    log(f"gemma2-27b cell done at {time.perf_counter() - t_start:.1f} s")
+
+    def nudge_probe(cfg, kw, first) -> dict:
+        """A reading, not a check: how far the served logits move when every
+        layer's scan output is one bf16 step off in every NUDGE_EVERY-th
+        element, as a kernel that rounds differently would leave it. This is
+        what the cell's logits gate asks of a scan kernel."""
+        def nudged(*inputs):
+            y, h = scan_ops.selective_scan(*inputs)
+            if y.dtype != torch.bfloat16:
+                fail(f"nudge probe wants a bf16 y, got {y.dtype}")
+            y.view(-1).view(torch.int16)[::NUDGE_EVERY] += 1   # one step
+            return y, h
+
+        with swapped(ssm_mod, "selective_scan", nudged):
+            out = serve(cfg, **kw, params=first["params"], prompts=first["prompts"])
+        lg, lg_n = first["prefill_logits"].float(), out["prefill_logits"].float()
+        err = float((lg_n - lg).abs().max())
+        agree = int((out["tokens"] == first["tokens"]).sum())
+        log(f"nudge probe: one bf16 step in every {NUDGE_EVERY}th scan output "
+            f"of every layer moves the prefill logits by max|err| {err:.3g} "
+            f"against mean|logit| {float(lg.abs().mean()):.3g} (the gate: "
+            f"{LOGITS_REL}*mean|logit|); greedy tokens agreeing "
+            f"{agree}/{out['tokens'].numel()}")
+        return {"nudge_logits_max_abs_err": err, "nudge_tokens_agree": agree}
+
+    # falcon-mamba-7b: the selective scan, lockstep in the plain-scan run
+    lockstep = Lockstep()
+    serve_stats[SERVE_MAMBA["arch"]], scan_launches = serve_cell(
+        SERVE_MAMBA, lockstep.swap(),
+        {"flash_attention": 0, "ssm_scan": mcfg.n_layers}, nudge_probe)
+    torch.cuda.empty_cache()
+    steps = lockstep.layers
+    if len(steps) != mcfg.n_layers or len(lockstep.residual) != mcfg.n_layers:
+        fail(f"lockstep saw {len(steps)} scans and {len(lockstep.residual)} "
+             f"layers, want {mcfg.n_layers}")
+    res = lockstep.residual
+    log("lockstep: mean|residual| after layer " + ", ".join(
+        f"{i + 1}: {res[i]:.3g}" for i in range(len(res))
+        if i in (0, 1, 3, len(res) - 1) or (i + 1) % 8 == 0))
+    log(f"lockstep: kernel y equal to the plain y in every element in "
+        f"{sum(s['y_equal'] == 1.0 for s in steps)}/{len(steps)} layers, h_last "
+        f"in {sum(s['h_equal'] == 1.0 for s in steps)}/{len(steps)} (limit: all); "
+        f"least share equal {min(s['y_equal'] for s in steps)}, max|err| "
+        f"{max(s['y_max_err'] for s in steps):.3g}; mean|y| from "
+        f"{min(s['y_mean_abs'] for s in steps):.3g} to "
+        f"{max(s['y_mean_abs'] for s in steps):.3g}")
+    if any(s["y_equal"] != 1.0 or s["h_equal"] != 1.0 for s in steps):
+        fail("ssm_scan disagrees with its plain version on a served layer's input")
+    serve_stats[SERVE_MAMBA["arch"]]["lockstep"] = {
+        "residual_mean_abs": res, "y_equal_min": min(s["y_equal"] for s in steps),
+        "y_max_err": max(s["y_max_err"] for s in steps)}
+
+    ss = scan_shape
+    dt_rank = mcfg.ssm.resolved_dt_rank(mcfg.d_model)
+    sin = scan_inputs(ss["B"], ss["S"], ss["di"], ss["N"], *mixed, dt_rank=dt_rank)
+    scan_err, scan_mean_ref = compare_scan(sin, f"serve shape {ss}")
+    scan_ms = time_ms(lambda: scan_ops.selective_scan(*sin), reps=10)
+    scan_plain_ms = time_ms(lambda: ssm_scan_ref(*sin), reps=2)
+    y_out, h_out = scan_ops.selective_scan(*sin)
+    scan_bound, scan_bound_by, scan_detail = scan_bound_ms(sin, (y_out, h_out))
+    log(f"time ssm_scan {ss} (xi bf16, dt f32, B/C bf16): kernel {scan_ms:.3f} ms, "
+        f"plain {scan_plain_ms:.3f} ms, bound {scan_bound:.3f} ms "
+        f"({scan_bound_by}; {json.dumps(scan_detail)})")
+    del sin, y_out, h_out
 
     summary = {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
-        "launches": launches["flash_attention"],
+        "launches": fa_launches["flash_attention"],
         "shape": (f"B={Bs} S={S} Hq={g['Hq']} Hkv={g['Hkv']} D={g['D']} bf16 "
                   f"causal window=0 cap={g['cap']} (serve global layer)"),
         "max_abs_err": worst["serve_shape"],
@@ -295,7 +564,26 @@ def main() -> None:
         "plain_ms_local": t["local"]["plain_ms"],
         "bound_ms_local": t["local"]["bound"][0],
         "max_abs_err_cases": worst,
+    }, {
+        "name": "ssm_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:51",
+        "launches": scan_launches["ssm_scan"],
+        "shape": (f"B={ss['B']} S={ss['S']} di={ss['di']} N={ss['N']} xi/B/C "
+                  f"bf16, dt/A/h0 f32 (every falcon-mamba-7b layer's prefill)"),
+        "max_abs_err": scan_err,
+        "mean_abs_ref": scan_mean_ref,
+        "ms": scan_ms,
+        "plain_ms": scan_plain_ms,
+        "bound_ms": scan_bound,
+        "bound_by": scan_bound_by,
+        "bound_detail": scan_detail,
+        "library_ms": None,
+        "library_call": "none: no PyTorch call computes a selective scan",
+        "max_abs_err_cases": scan_worst,
     }], "serve": serve_stats}
+    log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

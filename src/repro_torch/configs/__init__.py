@@ -10,6 +10,7 @@ from repro_torch.configs.base import ArchConfig
 
 _MODULES = {
     "gemma2-27b": "gemma2_27b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
 

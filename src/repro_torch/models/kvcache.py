@@ -1,4 +1,5 @@
-"""KV caches for decode, the attention part of ``repro/models/kvcache.py``.
+"""KV and state caches for decode, the attention and mamba parts of
+``repro/models/kvcache.py``.
 
 Caches hold the absolute position of each slot, so local layers use a ring
 (slot = pos % window) with the same insert path as global layers; an empty
@@ -20,6 +21,22 @@ def attn_cache_specs(cfg, B: int, T: int, kind: str) -> dict[str, ParamSpec]:
         "v": ParamSpec((B, size, F), cfg.compute_dtype, init="zeros"),
         "pos": ParamSpec((B, size), torch.int32, init="neg_ones"),
     }
+
+
+def mamba_cache_specs(cfg, B: int) -> dict[str, ParamSpec]:
+    """conv: the last K-1 conv inputs in the compute dtype; h: the f32 state."""
+    s, di = cfg.ssm, cfg.d_inner
+    return {
+        "conv": ParamSpec((B, s.d_conv - 1, di), cfg.compute_dtype,
+                          init="zeros"),
+        "h": ParamSpec((B, di, s.d_state), torch.float32, init="zeros"),
+    }
+
+
+def layer_cache_specs(cfg, kind: str, B: int, T: int) -> dict[str, ParamSpec]:
+    if kind == "mamba":
+        return mamba_cache_specs(cfg, B)
+    return attn_cache_specs(cfg, B, T, kind)
 
 
 def cache_insert(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,

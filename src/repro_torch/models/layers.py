@@ -34,8 +34,9 @@ def to_dtype(dt) -> torch.dtype:
 class ParamSpec:
     shape: tuple[int, ...]
     dtype: Any = torch.float32
-    init: str = "normal"   # normal | zeros | ones | neg_ones
+    init: str = "normal"   # normal | zeros | ones | neg_ones | a_log
     scale: float = 1.0     # fan-in style scale multiplier for "normal"
+    keep_dtype: bool = False   # Model.compute_params leaves it in `dtype`
 
     def materialize(self, generator: torch.Generator,
                     device: torch.device) -> torch.Tensor:
@@ -46,6 +47,10 @@ class ParamSpec:
             return torch.ones(self.shape, dtype=dt, device=device)
         if self.init == "neg_ones":
             return torch.full(self.shape, -1, dtype=dt, device=device)
+        if self.init == "a_log":  # mamba A init: log(1..d_state) per channel
+            a = torch.arange(1, self.shape[-1] + 1, dtype=torch.float32,
+                             device=device)
+            return torch.log(a).expand(self.shape).to(dt).contiguous()
         if self.init != "normal":
             raise ValueError(f"unknown init {self.init!r}")
         # truncated normal at +-2 sigma, fan-in scaled. As in the reference,
@@ -56,7 +61,7 @@ class ParamSpec:
         arr = torch.empty(self.shape, dtype=torch.float32, device=device)
         torch.nn.init.trunc_normal_(arr, 0.0, 1.0, -2.0, 2.0,
                                     generator=generator)
-        return (arr * std).to(dt)
+        return arr.mul_(std).to(dt)   # in place: no second f32 copy
 
 
 def tree_map(fn: Callable, tree: Tree) -> Tree:

@@ -1,5 +1,5 @@
 """Public model API: init / prefill / decode, the port of
-``repro/models/model.py`` for the attention-only kinds."""
+``repro/models/model.py`` for the attention and mamba kinds."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +10,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import init_params, to_dtype, tree_map
+from repro_torch.models.layers import init_params, to_dtype
 
 Tree = Any
 
@@ -35,9 +35,19 @@ class Model:
         """Cast every weight matrix to the compute dtype once. The layers
         cast each weight to the compute dtype where they use it (as the
         reference does), so this changes no result; it saves that cast on
-        every step. Norm scales (1-D) stay in the param dtype."""
+        every step. Norm scales and biases (1-D) stay in the param dtype,
+        and so does every parameter whose spec says ``keep_dtype`` (mamba's
+        ``A_log`` and ``D``, declared and used in f32)."""
         cdt = to_dtype(self.cfg.compute_dtype)
-        return tree_map(lambda t: t.to(cdt) if t.dim() >= 2 else t, params)
+
+        def cast(spec, t):
+            if isinstance(t, list):   # a stacked spec's per-period trees
+                return [cast(spec, p) for p in t]
+            if isinstance(t, dict):
+                return {k: cast(spec[k], t[k]) for k in t}
+            return t if t.dim() < 2 or spec.keep_dtype else t.to(cdt)
+
+        return cast(self.param_specs(), params)
 
     # -- caches -----------------------------------------------------------
     def cache_specs(self, B: int, T: int) -> Tree:

@@ -1,5 +1,5 @@
-"""Decoder-stack assembly for the dense/local/global kinds, the port of
-``repro/models/transformer.py``.
+"""Decoder-stack assembly for the dense/local/global and mamba kinds, the
+port of ``repro/models/transformer.py``.
 
 The parameter tree keeps the reference's layout: ``embed``, ``final_ln``,
 ``scan/{i:kind}`` for the periods of the layer pattern and ``rem/{j:kind}``
@@ -14,7 +14,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import kvcache
+from repro_torch.models import kvcache, ssm as ssm_lib
 from repro_torch.models.layers import (
     embed, embed_specs, mlp, mlp_specs, rms_norm, rms_norm_spec, softcap,
     stack_specs, to_dtype, unembed, unstack,
@@ -41,12 +41,13 @@ def _plan(cfg) -> tuple[int, int]:
 
 def block_specs(cfg, kind: str) -> dict:
     plus = cfg.scale_embeddings  # gemma-family (1+w) norm convention
-    s: dict[str, Any] = {
-        "ln1": rms_norm_spec(cfg.d_model, plus),
-        "attn": attn_lib.attn_specs(cfg),
-        "ln2": rms_norm_spec(cfg.d_model, plus),
-        "mlp": mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp_glu, cfg.param_dtype),
-    }
+    s: dict[str, Any] = {"ln1": rms_norm_spec(cfg.d_model, plus)}
+    if kind == "mamba":
+        s["mamba"] = ssm_lib.mamba_specs(cfg)
+        return s
+    s["attn"] = attn_lib.attn_specs(cfg)
+    s["ln2"] = rms_norm_spec(cfg.d_model, plus)
+    s["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp_glu, cfg.param_dtype)
     if cfg.post_norms:
         s["ln1_post"] = rms_norm_spec(cfg.d_model, plus)
         s["ln2_post"] = rms_norm_spec(cfg.d_model, plus)
@@ -74,7 +75,7 @@ def transformer_specs(cfg) -> dict:
 
 
 def cache_specs(cfg, B: int, T: int) -> dict:
-    return _layout(cfg, lambda kind: kvcache.attn_cache_specs(cfg, B, T, kind))
+    return _layout(cfg, lambda kind: kvcache.layer_cache_specs(cfg, kind, B, T))
 
 
 def unstack_scan(tree: dict, cfg) -> dict:
@@ -94,6 +95,10 @@ def apply_block(kind: str, p: dict, x: torch.Tensor, *, cfg,
                 return_cache: bool, cache_len: int = 0):
     eps, plus = cfg.norm_eps, cfg.scale_embeddings
     h = rms_norm(x, p["ln1"], eps, plus)
+    if kind == "mamba":
+        out, new_cache = ssm_lib.mamba_block(
+            p["mamba"], h, cfg=cfg, cache=cache, return_cache=return_cache)
+        return x + out, new_cache
     a_out, new_cache = attn_lib.attention(
         p["attn"], h, cfg=cfg, kind=kind, positions=positions, cache=cache,
         return_cache=return_cache, cache_len=cache_len)

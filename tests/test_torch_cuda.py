@@ -1,4 +1,5 @@
-"""The CUDA flash-attention kernel against its plain version on the card.
+"""The CUDA kernels (flash attention, selective scan) against their plain
+versions on the card.
 
 Marked `cuda`: skips without a GPU and nvcc (the kernel has no CPU or
 interpret mode). On the card: ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -6,6 +7,10 @@ tests/test_torch_cuda.py``. The plain version runs on the same input values
 in f32, and each output element must lie within REL * |ref| + 2e-5: 2e-5
 for fp32 FMAs against fp32 matmuls summed in another order, and for bf16
 half a bf16 step (2**-8 of the value), as rounding to nearest even gives.
+The scan's plain version runs the same way, and the kernel's y and h_last
+must equal its result rounded to their dtype, element for element: the
+kernel performs the plain version's roundings in its order (no FMA
+contraction, the state sum by halving), so it gives the same bits.
 """
 import pytest
 
@@ -56,6 +61,43 @@ def test_kernel_matches_plain(cuda_device, dtype, case):
     assert o.dtype == dtype and o.shape == want.shape
     err = (o.float() - want).abs()
     assert bool((err <= REL[dtype] * want.abs() + ATOL).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("types", [
+    ("float32",) * 3, ("bfloat16",) * 3, ("bfloat16", "float32", "bfloat16")],
+    ids=["f32", "bf16", "mixed"])
+@pytest.mark.parametrize("shape", [
+    (2, 64, 256, 16), (1, 100, 300, 8), (2, 128, 512, 16), (3, 1, 77, 16),
+    (1, 130, 100, 5)])
+def test_scan_kernel_matches_plain(cuda_device, types, shape):
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.ssm_scan import ops, ref
+    B, S, di, N = shape
+    x_dt, dt_dt, bc_dt = (getattr(torch, t) for t in types)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def rn(*s):
+        return torch.randn(s, generator=g, device=cuda_device)
+
+    xi = rn(B, S, di).to(x_dt)
+    dt = (torch.nn.functional.softplus(rn(B, S, di)) * 0.1).to(dt_dt)
+    # Bm, Cm as column slices of one buffer, as the model's x_proj gives them
+    bc = rn(B, S, 3 * N).to(bc_dt)
+    Bm, Cm = bc[..., N:2 * N], bc[..., 2 * N:]
+    A = -torch.exp(rn(di, N) * 0.2)
+    h0 = rn(B, di, N)
+    before = LAUNCHES["ssm_scan"]
+    y, h = ops.selective_scan(xi, dt, Bm, Cm, A, h0)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssm_scan"] == before + 1
+    y_p, h_p = ref.ssm_scan_ref(xi.float(), dt.float(), Bm.float(), Cm.float(),
+                                A, h0)
+    assert y.dtype == x_dt and y.shape == (B, S, di)
+    assert h.dtype == torch.float32 and h.shape == (B, di, N)
+    for got, want in ((y, y_p), (h, h_p)):
+        same = got == want.to(got.dtype)
+        assert bool(same.all()), float(same.float().mean())
 
 
 def test_cuda_marker_is_registered(pytestconfig):

@@ -102,6 +102,23 @@ def test_serve_cli_runs_on_the_cpu(capsys):
     assert "gemma2-27b-smoke" in out and "decode p50" in out
 
 
+def test_serve_module_runs_falcon_mamba_on_the_cpu():
+    """``python -m repro_torch.launch.serve --arch falcon-mamba-7b --smoke
+    --device cpu``, as a user would run it, with jax and repro blocked."""
+    prog = ("import runpy, sys\n"
+            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            "sys.argv = ['serve', '--arch', 'falcon-mamba-7b', '--smoke',\n"
+            "            '--device', 'cpu', '--prompt-len', '24',\n"
+            "            '--new-tokens', '3']\n"
+            "runpy.run_module('repro_torch.launch.serve', run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", prog], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "falcon-mamba-7b-smoke" in r.stdout and "decode p50" in r.stdout
+
+
 def _run_smoke(cwd: Path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
