@@ -29,7 +29,23 @@ Phases, each of which makes the script exit non-zero when it fails:
   5. timing: each kernel, checked once more against its plain version,
      then timed with its plain version, its bound and the library call
      that computes the same function (where there is one), at the shapes
-     the serve path gives it.
+     the serve path gives it;
+  6. in transit: the paper's producer path at its HPC4e mesh (201x501x501,
+     50,451,201 float32 values a step). ``SeismicField`` makes each step on
+     the card and the port's ``InTransitSink`` stages it through the port's
+     staging server into its SAVIME while an analyst thread watches the
+     arrivals and queries each step as it lands, as
+     ``examples/torch_simulation_intransit.py`` does: 8 steps with
+     ``codec="int8-block"`` (each step quantized on the card by the pack
+     kernel, which must launch once a step; the step read back must equal
+     the host codec's decode and lie within the quantization bound of the
+     field), then the same 8 steps with ``codec="none"`` (a full float32
+     copy to the host a step), for the comparison the paper makes; then the
+     pack kernel is timed at that mesh.
+
+The pack kernel is checked in phase 3 too, byte for byte against its plain
+version (reference cases, the codec's ragged sizes, exact ties, the full
+mesh) and against the numpy host codec at the full mesh.
 
 The last lines are a JSON summary of the kernels, the card line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -42,6 +58,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -89,6 +106,16 @@ SERVE_MAMBA = dict(arch="falcon-mamba-7b", batch=4, prompt_len=4600,
                    new_tokens=32, n_layers=64, seed=0, kernel="ssm_scan",
                    reduced="none: full depth, 64 layers (stacked scan layout)")
 CELLS = (SERVE, SERVE_MAMBA)
+# the in-transit path: the paper's HPC4e velocity mesh (SeismicField's
+# docstring), staged as float32, 8 steps a codec; the int8-block codec's block
+# and the staging_pack tile it packs with
+MESH = dict(nx=201, ny=501, nz=501)
+INTRANSIT_STEPS = 8
+CODEC_BLOCK = 4096
+PACK_TILE = (CODEC_BLOCK // 128, 128)
+# the staging server's memory tier lives in /dev/shm: at most this share of it
+SHM_SHARE = 0.5
+MAX_STAGING_MEM = 4 << 30
 
 
 def log(msg: str) -> None:
@@ -152,6 +179,28 @@ def scan_bound_ms(inputs, outputs) -> tuple[float, str, dict]:
     return times[worst] * 1e3, ("bytes" if worst == "bytes" else "operations"), detail
 
 
+def shm_free_bytes() -> int:
+    """Prints ``df -B1 /dev/shm`` and returns its available bytes."""
+    out = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    log("df -B1 /dev/shm: " + " | ".join(out.strip().splitlines()))
+    return int(out.strip().splitlines()[-1].split()[3])
+
+
+def pack_bound_ms(x, q, s) -> tuple[float, str, dict]:
+    """Least time for one quantizing pack: x read once, the int8 blocks and
+    the scales written once, over the HBM rate, against about 8 fp32
+    operations an element (|x|, max, x/scale, round, two clamps, convert;
+    one division per block) over the fp32 peak. The larger of the two."""
+    nbytes = sum(t.numel() * t.element_size() for t in (x, q, s))
+    ops_count = 8 * x.numel()
+    times = {"bytes": nbytes / PEAK_BYTES, "operations": ops_count / PEAK_FLOPS["float32"]}
+    worst = max(times, key=times.get)
+    detail = {"bytes": nbytes, "operations": ops_count,
+              **{f"{k}_ms": v * 1e3 for k, v in times.items()}}
+    return times[worst] * 1e3, worst, detail
+
+
 @contextlib.contextmanager
 def swapped(module, name: str, value):
     """Replace ``module.name`` by ``value`` inside the block."""
@@ -181,8 +230,13 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
+    from repro_torch.codec.int8block import Int8BlockCodec
+    from repro_torch.data.seismic import SeismicConfig, SeismicField
     from repro_torch.kernels import LAUNCHES, build, reset_launches
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.staging_pack import kernel as pack_kernel
+    from repro_torch.kernels.staging_pack import ops as pack_ops
+    from repro_torch.kernels.staging_pack import ref as pack_ref
     from repro_torch.kernels.ssm_scan import ops as scan_ops
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
     from repro_torch.launch.serve import serve
@@ -206,7 +260,7 @@ def main() -> None:
         f"(sum {sum(build_s.values()):.1f} s)")
     for name, (rep, _) in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -322,6 +376,85 @@ def main() -> None:
         err, _ = compare_scan(scan_inputs(*shape, *types), f"B,S,di,N={shape}")
         dname = str(types[0]).split(".")[-1]
         scan_worst[dname] = max(scan_worst.get(dname, 0.0), err)
+
+    def compare_pack(got, want, what) -> int:
+        """Pack kernel against its plain version on the same input: blocks
+        and scales must be equal byte for byte (both divide in IEEE f32 and
+        round half to even). Returns max |err| of the blocks."""
+        (b, s), (b_p, s_p) = got, want
+        torch.cuda.synchronize()
+        if b.shape != b_p.shape or b.dtype != b_p.dtype or s.shape != s_p.shape:
+            fail(f"staging_pack {what}: kernel gave {tuple(b.shape)} {b.dtype}, "
+                 f"plain {tuple(b_p.shape)} {b_p.dtype}")
+        same_b = b.view(torch.uint8) == b_p.view(torch.uint8) if b.numel() else \
+            torch.ones(1, dtype=torch.bool, device=dev)
+        ok = bool(same_b.all()) and torch.equal(s.view(torch.int32),
+                                                s_p.view(torch.int32))
+        err = int((b.float() - b_p.float()).abs().max()) if b.numel() else 0
+        log(f"staging_pack {what}: blocks {tuple(b.shape)} "
+            f"{str(b.dtype).split('.')[-1]}; share of bytes equal to the plain "
+            f"version {float(same_b.float().mean())} (limit: all), scales "
+            f"equal {torch.equal(s, s_p)}; max|err| {err} "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"staging_pack disagrees with its plain version: {what}")
+        return err
+
+    def plain_quantize(x):
+        """The codec variant's plain version: pad to whole blocks, then pack."""
+        nb = -(-x.numel() // CODEC_BLOCK)
+        xp = torch.nn.functional.pad(x.reshape(-1), (0, nb * CODEC_BLOCK - x.numel()))
+        return pack_ref.pack_blocks_ref(xp.reshape(-1, PACK_TILE[1]), tile=PACK_TILE,
+                                        out_dtype=torch.int8)
+
+    pack_worst = 0
+    for shape, tile in (((256, 128), (256, 128)), ((512, 256), (256, 128)),
+                        ((64, 384), (8, 128))):       # tests/test_kernels.py
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn(*shape).to(dtype)
+            for out in (None, torch.int8, torch.bfloat16):
+                pack_worst = max(pack_worst, compare_pack(
+                    pack_kernel.pack_blocks(x, tile=tile, out_dtype=out),
+                    pack_ref.pack_blocks_ref(x, tile=tile, out_dtype=out),
+                    f"{shape} tile {tile} {str(dtype).split('.')[-1]} -> "
+                    f"{str(out or dtype).split('.')[-1]}"))
+    for n in (0, 1, 4096, 5000, 3 * 4096 + 17):
+        x = randn(n) * 3
+        pack_worst = max(pack_worst, compare_pack(
+            pack_ops.quantize_blocks(x, block_elems=CODEC_BLOCK), plain_quantize(x),
+            f"quantize_blocks n={n}"))
+    ties = torch.tensor([70.5, -70.5, 0.5, 1.5, 2.5, -2.5, 126.5, 127.0], device=dev)
+    x = torch.cat([ties, randn(CODEC_BLOCK + 300)])   # amax 127: scale 1, exact ties
+    got = pack_ops.quantize_blocks(x, block_elems=CODEC_BLOCK)
+    compare_pack(got, plain_quantize(x), "exact ties")
+    if got[0][0, :7].tolist() != [70, -70, 0, 2, 2, -2, 126]:
+        fail(f"ties not rounded half to even: {got[0][0, :7].tolist()}")
+    # amax / 127 underflows to 0 in the first block (scale 1, q = 0: the host
+    # codec's rule); the second block's scale is subnormal
+    x = torch.zeros(2 * CODEC_BLOCK, device=dev)
+    x[:3] = torch.tensor([4e-44, -7e-45, 1.4e-45])
+    x[CODEC_BLOCK:CODEC_BLOCK + 3] = torch.tensor([2e-38, 1e-39, -5e-40])
+    got = pack_ops.quantize_blocks(x, block_elems=CODEC_BLOCK)
+    compare_pack(got, plain_quantize(x), "subnormal blocks")
+    if got[1][0].item() != 1.0 or got[0][0].any().item():
+        fail(f"an underflowing block got scale {got[1][0].item()}")
+    mesh_n = MESH["nx"] * MESH["ny"] * MESH["nz"]
+    field0 = SeismicField(SeismicConfig(**MESH), device=dev).step(0).float()
+    for what, x in (("the seismic field, step 0", field0), ("normal values", randn(mesh_n))):
+        pack_worst = max(pack_worst, compare_pack(
+            pack_ops.quantize_blocks(x, block_elems=CODEC_BLOCK), plain_quantize(x),
+            f"full mesh {MESH} ({mesh_n} values as "
+            f"({-(-mesh_n // CODEC_BLOCK) * PACK_TILE[0]}, {PACK_TILE[1]}), tile "
+            f"{PACK_TILE}), {what}"))
+    int8_codec = Int8BlockCodec()
+    payload, meta = int8_codec.encode(field0)            # the kernel, on the card
+    host_payload, host_meta = int8_codec.encode(field0.cpu().numpy())   # numpy, host
+    same_payload = bytes(memoryview(payload)) == host_payload and meta == host_meta
+    log(f"int8-block payload of the full-mesh field from the card ({len(payload)} B) "
+        f"equal to the numpy host path's byte for byte: {same_payload}; meta {meta}")
+    if not same_payload:
+        fail("the card's int8-block payload differs from the host path's")
+    del x, got, payload, host_payload
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. + 5. each cell: serve, then its kernel's timing ----------------------
@@ -507,7 +640,8 @@ def main() -> None:
     lockstep = Lockstep()
     serve_stats[SERVE_MAMBA["arch"]], scan_launches = serve_cell(
         SERVE_MAMBA, lockstep.swap(),
-        {"flash_attention": 0, "ssm_scan": mcfg.n_layers}, nudge_probe)
+        {"flash_attention": 0, "ssm_scan": mcfg.n_layers, "staging_pack": 0},
+        nudge_probe)
     torch.cuda.empty_cache()
     steps = lockstep.layers
     if len(steps) != mcfg.n_layers or len(lockstep.residual) != mcfg.n_layers:
@@ -542,6 +676,207 @@ def main() -> None:
         f"plain {scan_plain_ms:.3f} ms, bound {scan_bound:.3f} ms "
         f"({scan_bound_by}; {json.dumps(scan_detail)})")
     del sin, y_out, h_out
+    torch.cuda.empty_cache()
+
+    # -- 6. in transit: the paper's producer path at its mesh --------------------
+    from repro_torch.analysis import AnalysisSession, analyzers, tar
+    from repro_torch.core import (InTransitConfig, InTransitSink, SavimeServer,
+                                  StagingServer)
+    mem_capacity = min(MAX_STAGING_MEM, int(shm_free_bytes() * SHM_SHARE))
+    disk_dir = ROOT / "build" / "staging-disk"     # the overflow tier, in the checkout
+    log(f"staging memory tier: {mem_capacity} B of /dev/shm; overflow to {disk_dir}")
+    raw_step = mesh_n * 4
+    nb_mesh = -(-mesh_n // CODEC_BLOCK)
+
+    def intransit(codec: str) -> dict:
+        """Stage INTRANSIT_STEPS steps of the mesh through the port's sink,
+        staging and SAVIME, flushing each, while an analyst thread reacts to
+        each arrival with a range query of that step (the example's window
+        energy). Checks what landed; returns the readings."""
+        sim = SeismicField(SeismicConfig(**MESH), device=dev)
+        savime = SavimeServer().start()
+        staging = StagingServer(savime.addr, mem_capacity=mem_capacity,
+                                disk_dir=str(disk_dir), send_threads=2).start()
+        rows, analyst_errors, stop = [], [], threading.Event()
+
+        def analyst():
+            try:
+                with AnalysisSession(savime.addr) as an:
+                    energy = analyzers.create("window_reduce", window=4, op="mean",
+                                              step_op="sum")
+                    with an.watch("sim_velocity") as sub:
+                        while not stop.is_set():
+                            ev = sub.poll(0.1)
+                            if ev is None:
+                                continue
+                            box = an.execute(tar("sim_velocity").attr("v")
+                                             .range(ev.origin, ev.hi).select())
+                            sq = box.array.astype(np.float64) ** 2
+                            energy.update(sq)
+                            rows.append((ev.origin[0], float(sq.sum())))
+            except Exception as e:  # noqa: BLE001 — reported and failed below
+                analyst_errors.append(repr(e))
+
+        watcher = threading.Thread(target=analyst, name="analyst", daemon=True)
+        watcher.start()
+        try:
+            sink = InTransitSink(staging.addr, InTransitConfig(
+                io_threads=2, tar_prefix="sim", max_inflight_bytes=256 << 20,
+                codec=codec, decode_at="staging"))
+            steps = []
+            try:
+                torch.cuda.synchronize()
+                reset_launches()
+                t_run = time.perf_counter()
+                for step in range(INTRANSIT_STEPS):
+                    t0 = time.perf_counter()
+                    field = sim.step(step).float()
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    sink.stage_array("velocity", field, step=step)
+                    t2 = time.perf_counter()
+                    sink.session.sync(timeout=600)     # the first part of flush
+                    t_sync = time.perf_counter()
+                    sink.flush(timeout=600)
+                    t3 = time.perf_counter()
+                    steps.append(dict(generate_ms=(t1 - t0) * 1e3,
+                                      stage_ms=(t2 - t1) * 1e3,
+                                      flush_ms=(t3 - t2) * 1e3,
+                                      flush_sync_ms=(t_sync - t2) * 1e3))
+                    log(f"in transit [{codec}] step {step}: generate "
+                        f"{steps[-1]['generate_ms']:.1f} ms, blocked in stage_array "
+                        f"{steps[-1]['stage_ms']:.1f} ms, flush "
+                        f"{steps[-1]['flush_ms']:.1f} ms (of which "
+                        f"{steps[-1]['flush_sync_ms']:.1f} ms until staging holds "
+                        f"the step; the rest until SAVIME does); "
+                        f"{raw_step / 1e6 / (t3 - t0):.1f} raw MB/s end to end")
+                run_s = time.perf_counter() - t_run
+                launches = dict(LAUNCHES)
+                codec_stats = dict(sink.session.stats.codec)
+            finally:
+                sink.close()
+            time.sleep(0.3)                    # the last events reach the analyst
+            stop.set()
+            watcher.join(timeout=60)
+            if watcher.is_alive() or analyst_errors:
+                fail(f"in transit [{codec}]: the analyst failed: {analyst_errors}")
+            last = INTRANSIT_STEPS - 1
+            with AnalysisSession(savime.addr) as an:
+                back = an.execute(tar("sim_velocity").attr("v").range(
+                    (last, 0, 0, 0), (last, MESH["nx"] - 1, MESH["ny"] - 1,
+                                      MESH["nz"] - 1)).select()).array
+            box = savime.engine.tars["sim_velocity"].data_box()
+            staging_stats = dict(staging.stats)
+        finally:
+            staging.stop()
+            savime.stop()
+        log(f"in transit [{codec}]: launches {launches}; codec {codec_stats}; "
+            f"staging {json.dumps({k: staging_stats[k] for k in ('datasets', 'bytes_in', 'raw_bytes_in', 'disk_fallbacks', 'codec_datasets')})}; "
+            f"SAVIME holds steps {box[0][0]}..{box[1][0]}; the analyst saw "
+            f"{len(rows)} arrivals")
+        want_launches = {k: (INTRANSIT_STEPS if k == "staging_pack" and codec == "int8-block"
+                             else 0) for k in launches}
+        if launches != want_launches:
+            fail(f"in transit [{codec}] launched {launches}, want {want_launches}")
+        if box != ((0, 0, 0, 0), (last, MESH["nx"] - 1, MESH["ny"] - 1, MESH["nz"] - 1)):
+            fail(f"in transit [{codec}]: SAVIME holds {box}")
+        if not rows:
+            fail(f"in transit [{codec}]: the analyst saw no arrival")
+        back = back.reshape(-1)
+        if codec == "int8-block":
+            if codec_stats.get("fallbacks") != 0 or codec_stats.get("datasets") != INTRANSIT_STEPS:
+                fail(f"int8-block codec fell back or skipped a step: {codec_stats}")
+            want_wire = INTRANSIT_STEPS * (mesh_n + 4 * nb_mesh)
+            if codec_stats["wire_bytes"] != want_wire or \
+                    codec_stats["raw_bytes"] != INTRANSIT_STEPS * raw_step:
+                fail(f"wire/raw bytes {codec_stats}, want {want_wire}/"
+                     f"{INTRANSIT_STEPS * raw_step}")
+            host = Int8BlockCodec()
+            want = host.decode(*host.encode(field.cpu().numpy())).view(np.float32)
+            equal = back.tobytes() == want.tobytes()
+            x = field.reshape(-1).double()
+            dq = torch.from_numpy(back).to(dev).double()
+            _, s = pack_ops.quantize_blocks(field, block_elems=CODEC_BLOCK)
+            amax = torch.nn.functional.pad(x.abs(), (0, nb_mesh * CODEC_BLOCK - mesh_n)
+                                           ).reshape(nb_mesh, CODEC_BLOCK).amax(1)
+            normal = s >= torch.finfo(torch.float32).tiny
+
+            def per_element(v):
+                return v.repeat_interleave(CODEC_BLOCK)[:mesh_n]
+
+            # q = rint(fl(x/s)), dq = fl(q*s): where s is a normal float,
+            # |x - dq| <= s/2 + 2^-24 (|x| + |q s|) <= s/2 + 2^-23 |x| + 2^-25 s
+            # (the f32 rounding of the quotient and the product). A subnormal
+            # s (amax < 127 * 2^-126) is amax/127 rounded to few bits, so
+            # |x / s| may pass 127 and clip: there |x - dq| <= amax.
+            s_el = per_element(s.double())
+            err = (x - dq).abs()
+            bound = torch.where(per_element(normal),
+                                s_el / 2 + 2.0 ** -23 * x.abs() + 2.0 ** -25 * s_el,
+                                per_element(amax))
+            within = bool((err <= bound).all())
+            log(f"in transit [int8-block]: step {last} read back equal to the host "
+                f"codec's decode byte for byte: {equal}; max|field - read back| "
+                f"{float(err.max()):.4g}, max of it over its bound (scale/2 + f32 "
+                f"rounding; the block's amax in the {int((~normal).sum())} of "
+                f"{nb_mesh} blocks whose scale is subnormal) "
+                f"{float((err / bound).max()):.4f} (limit 1); wire/raw "
+                f"{codec_stats['wire_bytes'] / codec_stats['raw_bytes']:.6f}")
+            if not (equal and within):
+                fail("the int8-block step read back differs from the host decode "
+                     "or exceeds the quantization bound")
+        elif back.tobytes() != field.cpu().numpy().tobytes():
+            fail(f"in transit [{codec}]: step {last} read back differs from the field")
+        ms = {k: [s_[k] for s_ in steps] for k in steps[0]}
+        return {"launches": launches["staging_pack"], "steps": INTRANSIT_STEPS,
+                "raw_mb_per_step": raw_step / 1e6, "run_s": run_s,
+                "raw_mb_per_s": INTRANSIT_STEPS * raw_step / 1e6 / run_s,
+                **{f"{k}_median": float(np.median(v)) for k, v in ms.items()},
+                "per_step_ms": ms, "codec": codec_stats,
+                "staging_disk_fallbacks": staging_stats["disk_fallbacks"],
+                "analyst_arrivals": len(rows)}
+
+    intransit_stats = {}
+    for codec in ("int8-block", "none"):
+        intransit_stats[codec] = intransit(codec)
+        torch.cuda.empty_cache()
+    log(f"in transit: {json.dumps({c: {k: v for k, v in s.items() if k != 'per_step_ms'} for c, s in intransit_stats.items()})}")
+
+    # -- 7. the pack kernel's time at the mesh -----------------------------------
+    x = SeismicField(SeismicConfig(**MESH), device=dev).step(INTRANSIT_STEPS - 1).float()
+    pack_err = compare_pack(pack_ops.quantize_blocks(x, block_elems=CODEC_BLOCK),
+                            plain_quantize(x), "full mesh, timed input")
+    pack_ms = time_ms(lambda: pack_ops.quantize_blocks(x, block_elems=CODEC_BLOCK), reps=50)
+    pack_plain_ms = time_ms(lambda: plain_quantize(x), reps=5)
+    # the field's far tails are subnormal floats, which take the slow path of
+    # the IEEE division: the same call on normal values, for comparison
+    x_normal = randn(mesh_n)
+    pack_normal_ms = time_ms(lambda: pack_ops.quantize_blocks(x_normal,
+                                                              block_elems=CODEC_BLOCK),
+                             reps=50)
+    subnormal_share = float(((x != 0) & (x.abs() < torch.finfo(torch.float32).tiny))
+                            .float().mean())
+    del x_normal
+    q_out, s_out = pack_ops.quantize_blocks(x, block_elems=CODEC_BLOCK)
+    pack_bound, pack_bound_by, pack_detail = pack_bound_ms(x, q_out, s_out)
+    # the non-quantizing re-tile, where PyTorch has a call: the kernel's cast
+    # path against permute().contiguous() on the padded (R, 128) array
+    xp = torch.nn.functional.pad(x.reshape(-1), (0, nb_mesh * CODEC_BLOCK - mesh_n)
+                                 ).reshape(-1, PACK_TILE[1])
+    ni, nj = xp.shape[0] // PACK_TILE[0], xp.shape[1] // PACK_TILE[1]
+    retile_ms = time_ms(lambda: pack_kernel.pack_blocks(xp, tile=PACK_TILE), reps=50)
+    # with one tile column the permuted view is already contiguous, so the
+    # library call is the copy that materializes it
+    retile_library_ms = time_ms(lambda: xp.view(ni, PACK_TILE[0], nj, PACK_TILE[1])
+                                .permute(0, 2, 1, 3).reshape(ni * nj, -1).clone(),
+                                reps=50)
+    log(f"time staging_pack at the mesh ({mesh_n} f32 values of the seismic field, "
+        f"{subnormal_share:.4f} of them subnormal; tile {PACK_TILE}, int8): kernel "
+        f"{pack_ms:.4f} ms (on normal values {pack_normal_ms:.4f} ms), plain "
+        f"{pack_plain_ms:.3f} ms, bound {pack_bound:.4f} ms ({pack_bound_by}; "
+        f"{json.dumps(pack_detail)}); re-tile without quantize: kernel "
+        f"{retile_ms:.4f} ms, permute().reshape().clone() {retile_library_ms:.4f} ms")
+    del x, xp, q_out, s_out, field0
 
     summary = {"kernels": [{
         "name": "flash_attention",
@@ -582,7 +917,30 @@ def main() -> None:
         "library_ms": None,
         "library_call": "none: no PyTorch call computes a selective scan",
         "max_abs_err_cases": scan_worst,
-    }], "serve": serve_stats}
+    }, {
+        "name": "staging_pack",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/staging_pack/csrc/staging_pack.cu",
+        "replaces": "src/repro/kernels/staging_pack/kernel.py:37",
+        "launches": intransit_stats["int8-block"]["launches"],
+        "shape": (f"{mesh_n} f32 values ({MESH['nx']}x{MESH['ny']}x{MESH['nz']} mesh) "
+                  f"as ({nb_mesh * PACK_TILE[0]}, {PACK_TILE[1]}), tile {PACK_TILE}, "
+                  f"int8 out (every in-transit step with codec int8-block)"),
+        "max_abs_err": pack_err,
+        "max_abs_err_cases": pack_worst,
+        "ms": pack_ms,
+        "plain_ms": pack_plain_ms,
+        "bound_ms": pack_bound,
+        "bound_by": pack_bound_by,
+        "bound_detail": pack_detail,
+        "library_ms": None,
+        "library_call": "none: no PyTorch call computes a per-block int8 quantize",
+        "ms_retile": retile_ms,
+        "library_ms_retile": retile_library_ms,
+        "library_call_retile": "x.view(ni,TR,nj,TC).permute(0,2,1,3).reshape(ni*nj,-1).clone()",
+        "ms_normal_values": pack_normal_ms,
+        "subnormal_share": subnormal_share,
+    }], "serve": serve_stats, "intransit": intransit_stats}
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary), flush=True)
     print(card, flush=True)

@@ -6,7 +6,8 @@ it drives and reads them after, to show the path went through the kernels.
 """
 from __future__ import annotations
 
-LAUNCHES: dict[str, int] = {"flash_attention": 0, "ssm_scan": 0}
+LAUNCHES: dict[str, int] = {"flash_attention": 0, "ssm_scan": 0,
+                            "staging_pack": 0}
 
 
 def reset_launches() -> None:

@@ -20,6 +20,7 @@ BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 SOURCES = {
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     "ssm_scan": _PKG / "ssm_scan" / "csrc" / "ssm_scan.cu",
+    "staging_pack": _PKG / "staging_pack" / "csrc" / "staging_pack.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

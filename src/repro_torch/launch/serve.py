@@ -1,8 +1,10 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [...]``.
 
 Prefill a batch of prompts, then decode greedily (or by sampling at a
-temperature) with the KV cache updated in place. The port of
-``repro/launch/serve.py`` without its in-transit data plane and mesh flags.
+temperature) with the KV cache updated in place. Optionally stages
+per-step decode latencies in transit (SAVIME) like a real fleet would.
+The port of ``repro/launch/serve.py`` without its mesh flag, striped
+channels, coalescing, staging pool and fault plans.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Any, Callable, ContextManager, Optional
 import numpy as np
 import torch
 
+from repro_torch import analysis
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -35,11 +38,14 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
           device: str | torch.device = "cuda", params: Optional[Any] = None,
           prompts: Optional[torch.Tensor] = None,
           log: Callable[[str], None] = print,
-          phase: Callable[[str], ContextManager[Any]] = _no_phase) -> dict:
+          phase: Callable[[str], ContextManager[Any]] = _no_phase,
+          sink: Optional[Any] = None) -> dict:
     """Serve `batch` prompts of `prompt_len` tokens and generate `new_tokens`
     tokens each. Parameters and prompts are made from `seed` unless given.
     `phase(name)` is entered around the timed prefill ("prefill") and the
-    decode loop ("decode"), e.g. to trace each with a profiler.
+    decode loop ("decode"), e.g. to trace each with a profiler. With an
+    in-transit `sink`, each decode step's latency (ms, float32) is staged
+    as "decode_ms" at that step.
 
     Returns tokens (B, new_tokens), the prefill's last-token logits (B, V),
     prefill_ms, decode_ms (one per decode step), and the params and prompts
@@ -86,6 +92,8 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
                 _sync(dev)
                 lat.append((time.perf_counter() - t1) * 1e3)
                 out.append(tok)
+                if sink is not None:
+                    sink.stage_array("decode_ms", np.float32([lat[-1]]), step=i)
         tokens = torch.cat(out, dim=1)
     if lat:
         lat_ms = np.asarray(lat)
@@ -109,13 +117,80 @@ def main(argv=None) -> None:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda raises when absent")
+    ap.add_argument("--intransit", action="store_true",
+                    help="stage per-step latencies into SAVIME")
+    ap.add_argument("--transport", default="rdma_staged",
+                    choices=["rdma_staged"],
+                    help="egress engine for the in-transit sink (the "
+                         "copy-emulation baselines come with a later slice)")
+    ap.add_argument("--wire-format", default="json",
+                    choices=["json", "bin1"],
+                    help="negotiate the struct-packed binary fast path "
+                         "for hot data frames (falls back to json)")
+    ap.add_argument("--page-kb", type=int, default=0,
+                    help="run staging on the paged store with this page "
+                         "size (KiB, 0 = flat regions); cold pages spill "
+                         "to disk under memory pressure (DESIGN.md §11)")
+    ap.add_argument("--spill-dir", default=None,
+                    help="directory for spilled cold pages (default: a "
+                         "spill/ subdir of the staging disk tier)")
+    ap.add_argument("--dedup", action="store_true",
+                    help="content-addressed page dedup: identical sealed "
+                         "pages stored once (needs --page-kb)")
+    ap.add_argument("--codec", default="none",
+                    help="egress reduction codec for staged datasets "
+                         "(none | delta-rle | int8-block; DESIGN.md §13)")
+    ap.add_argument("--decode-at", default="staging",
+                    choices=["staging", "query"],
+                    help="decode coded datasets at ingest (default) or "
+                         "store them compressed and decode lazily on the "
+                         "staging->SAVIME hop")
+    ap.add_argument("--analyzer", default=None,
+                    choices=analysis.analyzers.available(),
+                    help="summarize staged decode latencies with a "
+                         "registered analyzer (needs --intransit)")
     args = ap.parse_args(argv)
+    if args.analyzer and not args.intransit:
+        ap.error("--analyzer requires --intransit")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
-    serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
-          new_tokens=args.new_tokens, temperature=args.temperature,
-          device=args.device)
+    if not args.intransit:
+        serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
+              new_tokens=args.new_tokens, temperature=args.temperature,
+              device=args.device)
+        return
+
+    from repro_torch.core import (InTransitConfig, InTransitSink,
+                                  SavimeServer, StagingServer)
+    savime = SavimeServer().start()
+    staging = StagingServer(savime.addr, page_bytes=args.page_kb << 10,
+                            spill_dir=args.spill_dir, dedup=args.dedup).start()
+    try:
+        sink = InTransitSink(staging.addr, InTransitConfig(
+            tar_prefix="serve", transport=args.transport,
+            wire_format=args.wire_format, page_bytes=args.page_kb << 10,
+            spill_dir=args.spill_dir, dedup=args.dedup, codec=args.codec,
+            decode_at=args.decode_at))
+        try:
+            serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
+                  new_tokens=args.new_tokens, temperature=args.temperature,
+                  device=args.device, sink=sink)
+            sink.flush()
+            if args.analyzer:
+                with analysis.AnalysisSession(savime.addr) as an:
+                    res = an.execute(
+                        analysis.tar("serve_decode_ms").attr("v").select())
+                    a = analysis.analyzers.create(args.analyzer)
+                    a.update(res)
+                    s = a.summary()
+                    print(f"[serve] analyzer[{s.analyzer}] over "
+                          f"{res.shape} staged latencies: {s.payload}")
+        finally:
+            sink.close()
+    finally:
+        staging.stop()
+        savime.stop()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""The CUDA kernels (flash attention, selective scan) against their plain
-versions on the card.
+"""The CUDA kernels (flash attention, selective scan, egress pack) against
+their plain versions on the card.
 
 Marked `cuda`: skips without a GPU and nvcc (the kernel has no CPU or
 interpret mode). On the card: ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -10,7 +10,8 @@ half a bf16 step (2**-8 of the value), as rounding to nearest even gives.
 The scan's plain version runs the same way, and the kernel's y and h_last
 must equal its result rounded to their dtype, element for element: the
 kernel performs the plain version's roundings in its order (no FMA
-contraction, the state sum by halving), so it gives the same bits.
+contraction, the state sum by halving), so it gives the same bits. The pack
+kernel's blocks and scales must equal the plain version's byte for byte.
 """
 import pytest
 
@@ -98,6 +99,92 @@ def test_scan_kernel_matches_plain(cuda_device, types, shape):
     for got, want in ((y, y_p), (h, h_p)):
         same = got == want.to(got.dtype)
         assert bool(same.all()), float(same.float().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [None, torch.int8, torch.bfloat16],
+                         ids=["same", "int8", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,tile", [((256, 128), (256, 128)),
+                                        ((512, 256), (256, 128)),
+                                        ((64, 384), (8, 128))],
+                         ids=["256x128", "512x256", "64x384"])
+def test_pack_kernel_matches_plain(cuda_device, shape, tile, dtype, out):
+    """Byte for byte: both divide in IEEE f32 and round half to even."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.staging_pack import kernel, ref
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    before = LAUNCHES["staging_pack"]
+    b, s = kernel.pack_blocks(x, tile=tile, out_dtype=out)
+    torch.cuda.synchronize()
+    assert LAUNCHES["staging_pack"] == before + 1
+    b_p, s_p = ref.pack_blocks_ref(x, tile=tile, out_dtype=out)
+    assert b.dtype == b_p.dtype and torch.equal(b, b_p) and torch.equal(s, s_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4096, 5000, 3 * 4096 + 17, 201 * 501 * 501])
+def test_quantize_blocks_kernel_matches_plain(cuda_device, n):
+    """The codec's variant with the ragged last block masked in the kernel,
+    up to the paper's 201x501x501 mesh; the plain version pads."""
+    from repro_torch.kernels.staging_pack import ops, ref
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(n, generator=g, device=cuda_device) * 3
+    # exact ties: with amax 127 in the first block its scale is 1
+    ties = torch.tensor([70.5, -70.5, 0.5, 1.5, 2.5, -2.5, 126.5, 127.0])
+    x[:8] = ties[:n]
+    q, s = ops.quantize_blocks(x)
+    nb = s.numel()
+    xp = torch.nn.functional.pad(x, (0, nb * 4096 - n)).reshape(nb * 32, 128)
+    q_p, s_p = ref.pack_blocks_ref(xp, tile=(32, 128), out_dtype=torch.int8)
+    assert torch.equal(q, q_p) and torch.equal(s, s_p)
+    if n >= 8:
+        assert q[0, :7].tolist() == [70, -70, 0, 2, 2, -2, 126]
+
+
+@pytest.mark.cuda
+def test_quantize_blocks_kernel_gives_underflowing_blocks_scale_one(cuda_device):
+    """amax / 127 underflows to 0 in the first block: scale 1 and q = 0, the
+    host codec's bytes; the second block's scale is subnormal, not 0."""
+    from repro_torch.kernels.staging_pack import ops
+    x = torch.zeros(2 * 4096, device=cuda_device)
+    x[:3] = torch.tensor([4e-44, -7e-45, 1.4e-45])
+    x[4096:4099] = torch.tensor([2e-38, 1e-39, -5e-40])
+    q, s = ops.quantize_blocks(x)
+    q_p, s_p = ops.quantize_blocks(x.cpu())
+    assert s[0].item() == 1.0 and not q[0].any().item()
+    assert torch.equal(q.cpu(), q_p) and torch.equal(s.cpu(), s_p)
+
+
+@pytest.mark.cuda
+def test_sink_packs_a_cuda_tensor_on_the_card(cuda_device):
+    """A CUDA float tensor staged with codec int8-block launches the kernel
+    once and lands in SAVIME as the host path's bytes decode."""
+    import numpy as np
+
+    from repro_torch.codec.int8block import Int8BlockCodec
+    from repro_torch.core import (InTransitConfig, InTransitSink,
+                                  SavimeServer, StagingServer)
+    from repro_torch.kernels import LAUNCHES
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(3 * 4096 + 17, generator=g, device=cuda_device)
+    sv = SavimeServer().start()
+    st = StagingServer(sv.addr, mem_capacity=16 << 20).start()
+    try:
+        sink = InTransitSink(st.addr, InTransitConfig(codec="int8-block"))
+        before = LAUNCHES["staging_pack"]
+        sink.stage_array("x", x, step=0)
+        assert LAUNCHES["staging_pack"] == before + 1
+        sink.close()
+        got = sv.engine.tars["run_x"].select("v")[0]
+        codec = Int8BlockCodec()
+        want = codec.decode(*codec.encode(x.cpu().numpy())).view(np.float32)
+        assert got.tobytes() == want.tobytes()
+    finally:
+        st.stop()
+        sv.stop()
 
 
 def test_cuda_marker_is_registered(pytestconfig):

@@ -1,0 +1,222 @@
+"""Port parity for the in-transit egress path: the port's SeismicField,
+InTransitSink, TransferSession, staging and SAVIME against the reference's,
+on the CPU, with the same values.
+
+End to end, the example's mesh (31x64x64), 3 steps plus a small tree, with
+codec none and int8-block, decoded at staging and at query: the port's sink
+into the reference's servers, the reference's sink into the port's servers
+and port into port must each leave what reference into reference leaves,
+byte for byte: every SAVIME TAR (name, dimensions, attributes, subtars and
+their bytes), the DDL statements SAVIME ran (TAR and dataset names), and the
+sender's raw and wire byte counts. Every test stops its servers.
+"""
+import dataclasses
+import functools
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+import repro.core as rcore  # noqa: E402
+import repro.transport as rtransport  # noqa: E402
+import repro_torch.core as pcore  # noqa: E402
+import repro_torch.transport as ptransport  # noqa: E402
+from repro.data.seismic import SeismicConfig as RefSeismicConfig  # noqa: E402
+from repro.data.seismic import SeismicField as RefSeismicField  # noqa: E402
+from repro_torch.data.seismic import SeismicConfig, SeismicField  # noqa: E402
+
+CORE = {"ref": rcore, "port": pcore}
+MESH = dict(nx=31, ny=64, nz=64)
+N_STEPS = 3
+
+
+@pytest.mark.parametrize("t", [0, 4, 11])
+def test_seismic_field_matches_reference(t):
+    ours = SeismicField(SeismicConfig(**MESH), device="cpu").step(t)
+    want = RefSeismicField(RefSeismicConfig(**MESH)).step(t)
+    assert ours.dtype == torch.float64 and ours.shape == want.shape
+    # torch's exp and sqrt against numpy's: within 1e-12 relative, except
+    # in the subnormal range (the shells' far tails), where a double keeps
+    # fewer significant bits: there within the smallest normal double
+    np.testing.assert_allclose(ours.numpy(), want, rtol=1e-12,
+                               atol=np.finfo(np.float64).tiny)
+
+
+def test_seismic_field_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SeismicField(SeismicConfig(**MESH))
+
+
+@functools.cache
+def _fields() -> tuple:
+    f = RefSeismicField(RefSeismicConfig(**MESH))
+    return tuple(f.step(t).astype(np.float32) for t in range(N_STEPS))
+
+
+def _tree(step: int, as_tensor: bool) -> dict:
+    r = np.random.default_rng(step)
+    leaves = {"loss": r.standard_normal(1).astype(np.float32),
+              "grad/norm": r.standard_normal((3, 5)).astype(np.float32),
+              "tok.count": np.arange(4, dtype=np.int64) + step}
+    if as_tensor:
+        leaves = {k: torch.from_numpy(v) for k, v in leaves.items()}
+    return {"diag": leaves, "lr": leaves["loss"] * 0}
+
+
+def _savime_contents(sv) -> dict:
+    """Every TAR with its dimensions, attributes and subtars' bytes, and
+    the datasets SAVIME holds but has not loaded."""
+    eng = sv.engine
+    out = {}
+    for name, t in sorted(eng.tars.items()):
+        subs = sorted((st.origin, st.shape, tuple(
+            (a, v.dtype.str, v.tobytes()) for a, v in sorted(st.data.items())))
+            for st in t.subtars)
+        out[name] = ([dataclasses.astuple(d) for d in t.dims],
+                     sorted(dataclasses.astuple(a) for a in t.attrs.values()),
+                     subs)
+    out["__datasets__"] = sorted(eng.datasets)
+    return out
+
+
+def _run(sink_pkg: str, server_pkg: str, codec: str, decode_at: str) -> dict:
+    servers = CORE[server_pkg]
+    sv = servers.SavimeServer().start()
+    ddl = []
+    run = sv.engine.run
+
+    def recording_run(q):
+        ddl.append(q)
+        return run(q)
+
+    sv.engine.run = recording_run
+    st = servers.StagingServer(sv.addr, mem_capacity=64 << 20).start()
+    try:
+        sinks = CORE[sink_pkg]
+        sink = sinks.InTransitSink(st.addr, sinks.InTransitConfig(
+            tar_prefix="sim", codec=codec, decode_at=decode_at))
+        try:
+            port = sink_pkg == "port"
+            for step, field in enumerate(_fields()):
+                sink.stage_array("velocity",
+                                 torch.from_numpy(field) if port else field,
+                                 step=step)
+                sink.stage_tree("t_", _tree(step, port), step=step)
+            sink.flush(timeout=30)
+            codec_stats = dict(sink.session.stats.codec)
+            codec_stats.pop("encode_s", None)
+            staged = (sink.staged_bytes, sink.staged_arrays)
+        finally:
+            sink.close()
+        contents = _savime_contents(sv)
+    finally:
+        st.stop()
+        sv.stop()
+    return {"contents": contents, "ddl": ddl, "codec": codec_stats,
+            "staged": staged}
+
+
+@functools.cache
+def _reference(codec: str, decode_at: str) -> dict:
+    return _run("ref", "ref", codec, decode_at)
+
+
+@pytest.mark.parametrize("decode_at", ["staging", "query"])
+@pytest.mark.parametrize("codec", ["none", "int8-block"])
+@pytest.mark.parametrize("sink,servers", [("port", "ref"), ("ref", "port"),
+                                          ("port", "port")],
+                         ids=["port_sink-ref_servers", "ref_sink-port_servers",
+                              "port_sink-port_servers"])
+def test_sink_leaves_the_reference_savime_contents(sink, servers, codec,
+                                                   decode_at):
+    want = _reference(codec, decode_at)
+    got = _run(sink, servers, codec, decode_at)
+    assert got["ddl"] == want["ddl"]
+    assert got["contents"].keys() == want["contents"].keys()
+    for name in want["contents"]:
+        assert got["contents"][name] == want["contents"][name], name
+    assert got["codec"] == want["codec"] and got["staged"] == want["staged"]
+    tars = [k for k in want["contents"] if not k.startswith("__")]
+    assert {"sim_velocity", "sim_t_diaggrad_norm", "sim_t_diagtok_count",
+            "sim_t_diagloss", "sim_t_lr"} <= set(tars)
+    if codec == "int8-block":
+        assert want["codec"]["fallbacks"] == 0
+        assert 0.25 < want["codec"]["wire_bytes"] / want["codec"]["raw_bytes"] < 0.3
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float16], ids=["f32", "f16"])
+def test_session_encodes_a_tensor_as_the_reference_encodes_its_array(dtype):
+    """A tensor written through the port's TransferSession reaches the
+    central encode as it is (the codec's tensor path, here the kernel's
+    plain version on the CPU) and lands in SAVIME as the reference's
+    session lands the same values from numpy."""
+    x = (np.random.default_rng(9).standard_normal(3 * 4096 + 17) * 4
+         ).astype(dtype)
+    landed = {}
+    for pkg, transport, data in (("ref", rtransport, x),
+                                 ("port", ptransport, torch.from_numpy(x))):
+        sv = rcore.SavimeServer().start()
+        st = rcore.StagingServer(sv.addr, mem_capacity=16 << 20).start()
+        try:
+            cfg = transport.TransportConfig(staging_addr=st.addr,
+                                            codec="int8-block")
+            with transport.TransferSession("rdma_staged", cfg) as sess:
+                sess.write("D", data, dtype=np.dtype(dtype).name)
+                sess.sync(30)
+                sess.drain(30)
+            landed[pkg] = (sv.engine.datasets["D"].tobytes(),
+                           {k: v for k, v in sess.stats.codec.items()
+                            if k != "encode_s"})
+        finally:
+            st.stop()
+            sv.stop()
+    assert landed["port"] == landed["ref"]
+    assert landed["port"][1]["datasets"] == 1
+
+
+def test_session_copies_a_tensor_to_the_host_without_a_codec():
+    x = np.arange(10, dtype=np.float32)
+    sv = pcore.SavimeServer().start()
+    st = pcore.StagingServer(sv.addr, mem_capacity=16 << 20).start()
+    try:
+        cfg = ptransport.TransportConfig(staging_addr=st.addr)
+        with ptransport.TransferSession("rdma_staged", cfg) as sess:
+            sess.write("D", torch.from_numpy(x))
+            sess.sync(30)
+            sess.drain(30)
+            with pytest.raises(ValueError, match="host buffers"):
+                sess.write("E", torch.from_numpy(x), nbytes=8)
+        ds = sv.engine.datasets["D"]
+        assert ds.dtype == np.float32 and ds.tobytes() == x.tobytes()
+    finally:
+        st.stop()
+        sv.stop()
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(n_channels=2), "n_channels=2"),
+    (dict(coalesce_bytes=4096), "coalesce_bytes=4096"),
+    (dict(gateway=True), "gateway=True"),
+    (dict(transport="scp_mem"), "scp_mem"),
+])
+def test_sink_refuses_what_a_later_slice_brings(kw, match):
+    with pytest.raises(ValueError, match=match):
+        pcore.InTransitSink("127.0.0.1:1", pcore.InTransitConfig(**kw))
+
+
+def test_stage_tree_names_leaves_as_the_reference():
+    import jax
+
+    from repro_torch.core.intransit import _flatten_with_path
+    tree = {"b": [np.zeros(1), None, {"x.y": np.ones(2)}], "a": np.zeros(3),
+            "c": (np.zeros(1), 2.0)}
+    ours = [(path, leaf) for path, leaf in _flatten_with_path(tree)]
+    theirs = jax.tree_util.tree_flatten_with_path(tree)[0]
+    assert [p for p, _ in ours] == [
+        tuple(getattr(k, "key", getattr(k, "idx", k)) for k in p)
+        for p, _ in theirs]
+    assert all(a is b for (_, a), (_, b) in zip(ours, theirs))

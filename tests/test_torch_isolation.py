@@ -1,8 +1,9 @@
 """The port stands alone: no file of src/repro_torch/ nor chip_smoke.py
 imports jax or anything of repro; every port module imports with both
 blocked; entry points refuse to run on the CPU unless asked to; the serve
-launcher rejects the reference's data-plane flags; chip_smoke.py fails
-without a GPU and outside a checkout."""
+launcher stages its latencies in transit and rejects the flags of what a
+later slice brings; chip_smoke.py fails without a GPU and outside a
+checkout."""
 import ast
 import os
 import shutil
@@ -16,7 +17,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "torch_simulation_intransit.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -84,14 +86,33 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     assert res["tokens"].shape == (1, 2)
 
 
-@pytest.mark.parametrize("flag", ["--intransit", "--mesh=1x1", "--pool=2",
-                                  "--codec=int8-block", "--transport=scp_mem"])
+@pytest.mark.parametrize("flag", ["--channels=2", "--mesh=1x1", "--pool=2",
+                                  "--coalesce-kb=64", "--transport=scp_mem"])
 def test_serve_cli_rejects_data_plane_flags(flag, capsys):
+    """The flags of what a later slice brings: the mesh, striped channels,
+    coalescing, the staging pool, and the copy-emulation transports."""
     from repro_torch.launch.serve import main
     with pytest.raises(SystemExit) as e:
         main(["--arch", "gemma2-27b", "--smoke", "--device", "cpu", flag])
     assert e.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if flag.startswith("--transport"):
+        assert "invalid choice: 'scp_mem'" in err
+    else:
+        assert "unrecognized arguments" in err
+
+
+@pytest.mark.parametrize("codec", ["int8-block", "none"])
+def test_serve_cli_stages_decode_latencies_in_transit(codec, capsys):
+    """--intransit stages each decode step's latency through the port's
+    sink, staging and SAVIME; the analyzer reads them back."""
+    from repro_torch.launch.serve import main
+    main(["--arch", "gemma2-27b", "--smoke", "--device", "cpu", "--batch", "1",
+          "--prompt-len", "8", "--new-tokens", "4", "--intransit",
+          "--codec", codec, "--analyzer", "running_stats"])
+    out = capsys.readouterr().out
+    assert "analyzer[running_stats] over (3, 1) staged latencies" in out
+    assert "'count': 3" in out
 
 
 def test_serve_cli_runs_on_the_cpu(capsys):
