@@ -10,9 +10,11 @@ Phases, each of which makes the script exit non-zero when it fails:
   3. kernels: each kernel against its plain PyTorch version on the card,
      element by element within the limits stated below: flash attention at
      the reference test cases, ragged lengths and the gemma2-27b prefill
-     shapes; the selective scan at the reference test cases in f32 and
-     bf16, the model's mixed types and ragged cases (its falcon-mamba-7b
-     prefill shape is checked in phase 5);
+     shapes, and the mask probe (an input whose answer is exact) at the
+     reference cases; the selective scan at the reference test cases in
+     f32 and bf16, the model's mixed types and ragged cases (its
+     falcon-mamba-7b prefill shape is checked in phase 5); before them, the
+     SASS of the flash-attention library must hold HGMMA (wgmma) ops;
   4. serve, one cell after the other (``CELLS``), each through
      ``repro_torch.launch.serve.serve``: 4 prompts of 4600 tokens plus 32
      greedy tokens, random weights from seed 0. gemma2-27b at full width
@@ -20,16 +22,19 @@ Phases, each of which makes the script exit non-zero when it fails:
      depth (64 layers). The cell's kernel must launch once per layer (its
      prefill), the logits must be finite, and the prefill logits must
      match the same model served through the kernel's plain version; then
-     a warm run gives the serve times. In falcon-mamba-7b's plain-scan run
+     a warm run gives the serve times. In gemma2-27b's plain-attention run
+     the kernel also runs on each layer's served q, k, v, in lockstep, and
+     is held to its per-element limit there. In falcon-mamba-7b's plain-scan run
      the kernel also runs beside the plain scan in lockstep, on each
      layer's own input, and is held to the scan's per-element limit there;
      that run also reads the residual stream after every layer. A last
      run of that cell, its scan outputs nudged by one bf16 step in a small
      share, reads how far its logits gate lets a kernel's rounding stray;
-  5. timing: each kernel, checked once more against its plain version,
-     then timed with its plain version, its bound and the library call
-     that computes the same function (where there is one), at the shapes
-     the serve path gives it;
+  5. timing: each kernel, checked once more against its plain version
+     (flash attention also by the mask probe, local and global), then timed
+     with its plain version, its bound and the library call that computes
+     the same function (where there is one), at the shapes the serve path
+     gives it;
   6. in transit: the paper's producer path at its HPC4e mesh (201x501x501,
      50,451,201 float32 values a step). ``SeismicField`` makes each step on
      the card and the port's ``InTransitSink`` stages it through the port's
@@ -40,12 +45,14 @@ Phases, each of which makes the script exit non-zero when it fails:
      kernel, which must launch once a step; the step read back must equal
      the host codec's decode and lie within the quantization bound of the
      field), then the same 8 steps with ``codec="none"`` (a full float32
-     copy to the host a step), for the comparison the paper makes; then the
+     copy to the host a step), for the comparison the paper makes; then one
+     step of the mesh in bfloat16, once with each codec, read back equal to
+     the host codec's decode (int8-block) or to its bits (none); then the
      pack kernel is timed at that mesh.
 
 The pack kernel is checked in phase 3 too, byte for byte against its plain
 version (reference cases, the codec's ragged sizes, exact ties, the full
-mesh) and against the numpy host codec at the full mesh.
+mesh) and against the numpy host codec at the full mesh and for float16.
 
 The last lines are a JSON summary of the kernels, the card line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -74,13 +81,12 @@ PEAK_BYTES = 3.35e12
 # arithmetic throughput for compute capability 9.0): 132 SMs at the 1.98 GHz
 # boost clock the data sheet's 67 TFLOP/s fp32 assumes.
 PEAK_EXPS = 132 * 16 * 1.98e9
-# kernel against its plain version on the same input values, the plain one
-# left in f32: |err| <= REL * |ref| + ATOL per element. ATOL covers fp32 sums
-# taken in another order; a bf16 output rounded to nearest even is within half
-# a bf16 step of the f32 value, and half a step is at most 2**-8 of it
-# (truncating instead of rounding misses this by up to a whole step).
-ATOL = 2e-5
-REL = {"float32": 0.0, "bfloat16": 2.0 ** -8}
+# flash attention against its plain version on the same input values, the
+# plain one left in f32: |err| <= kernel_error_limit per element
+# (kernels/flash_attention/ref.py). f32: 2e-5, fp32 sums taken in another
+# order. bf16 (the tensor-core instance rounds P to bf16 before P V):
+# 2**-8 * |ref| + 2**-8 * (P |V|) + 2e-5, P |V| being the plain version run
+# on |v|; on the mask probe, where every p is exact, 2**-8 * |ref| + 2e-5.
 # selective scan: y and h_last must equal the plain version's result, rounded
 # to the kernel's output dtype, element for element. The kernel performs the
 # plain version's roundings in its order (no FMA contraction, the state sum by
@@ -234,6 +240,7 @@ def main() -> None:
     from repro_torch.data.seismic import SeismicConfig, SeismicField
     from repro_torch.kernels import LAUNCHES, build, reset_launches
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention import ref as attn_ref
     from repro_torch.kernels.staging_pack import kernel as pack_kernel
     from repro_torch.kernels.staging_pack import ops as pack_ops
     from repro_torch.kernels.staging_pack import ref as pack_ref
@@ -262,6 +269,18 @@ def main() -> None:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
+    # the bf16 flash-attention instance must run on the tensor cores: wgmma
+    # shows in the SASS as HGMMA
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    hgmma = sum(1 for line in sass.splitlines() if "HGMMA" in line)
+    log(f"SASS of the flash_attention library: {hgmma} HGMMA instructions "
+        f"(wgmma; limit: at least 1)")
+    if hgmma == 0:
+        fail("the flash_attention library has no HGMMA instruction")
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -272,25 +291,52 @@ def main() -> None:
         return (randn(B, Sq, Hq, D).to(dtype), randn(B, Sk, Hkv, D).to(dtype),
                 randn(B, Sk, Hkv, D).to(dtype))
 
+    def attention_error(q, k, v, o_k, **kw) -> tuple[float, float, float]:
+        """The kernel's output o_k against the plain version in f32 on the
+        same input values, under kernel_error_limit. Returns (max |err|,
+        max |err| / limit, mean |ref|)."""
+        o_p = ops.gqa_attention_ref(q.float(), k.float(), v.float(), **kw)
+        pv_abs = (ops.gqa_attention_ref(q.float(), k.float(), v.float().abs(), **kw)
+                  if q.dtype == torch.bfloat16 else None)
+        err = (o_k.float() - o_p).abs()
+        ratio = float((err / attn_ref.kernel_error_limit(o_p, pv_abs,
+                                                         dtype=q.dtype)).max())
+        return float(err.max()), ratio, float(o_p.abs().mean())
+
     def compare(q, k, v, what, **kw) -> tuple[float, float]:
         """Kernel against the plain version on the same input values, in f32;
-        fails beyond REL * |ref| + ATOL. Returns (max |err|, mean |ref|)."""
+        fails beyond kernel_error_limit. Returns (max |err|, mean |ref|)."""
         dname = str(q.dtype).split(".")[-1]
         o_k = ops.gqa_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        o_p = ops.gqa_attention_ref(q.float(), k.float(), v.float(), **kw)
-        torch.cuda.synchronize()
-        if o_k.shape != o_p.shape or o_k.dtype != q.dtype:
+        if o_k.shape != q.shape or o_k.dtype != q.dtype:
             fail(f"kernel output {tuple(o_k.shape)} {o_k.dtype}")
-        err = (o_k.float() - o_p).abs()
-        within = bool((err <= REL[dname] * o_p.abs() + ATOL).all())
-        max_err, mean_ref = float(err.max()), float(o_p.abs().mean())
+        max_err, ratio, mean_ref = attention_error(q, k, v, o_k, **kw)
+        torch.cuda.synchronize()
         log(f"flash_attention {dname} {what}: max|err| {max_err:.3g}, "
-            f"mean|ref| {mean_ref:.3g} (limit {REL[dname]:.3g}*|ref| + {ATOL}) "
-            f"{'ok' if within else 'MISMATCH'}")
-        if not within:
+            f"mean|ref| {mean_ref:.3g}, max |err|/limit {ratio:.3f} (limit 1: "
+            f"{'2e-5' if dname == 'float32' else '2^-8*|ref| + 2^-8*P|V| + 2e-5'}) "
+            f"{'ok' if ratio <= 1 else 'MISMATCH'}")
+        if not ratio <= 1:
             fail(f"flash_attention disagrees with its plain version: {what} {dname}")
         return max_err, mean_ref
+
+    def probe(B, S, Hq, Hkv, D, what, **kw) -> float:
+        """The mask probe in bf16 (q = 0, v = (-1)**k: every p is 1, the
+        answer exact); fails beyond the tight 2**-8 * |ref| + 2e-5. Returns
+        max |err| / limit."""
+        q, k, v = attn_ref.mask_probe(B, S, S, Hq, Hkv, D, dtype=torch.bfloat16,
+                                      device=dev)
+        o = ops.gqa_attention(q, k, v, **kw)
+        want = attn_ref.mask_probe_answer(B, S, S, Hq, D, causal=kw["causal"],
+                                          window=kw["window"], device=dev)
+        ratio = float(((o.float() - want).abs()
+                       / attn_ref.kernel_error_limit(want, dtype=torch.bfloat16)).max())
+        log(f"flash_attention mask probe bf16 {what}: max |err|/limit {ratio:.3f} "
+            f"(limit 1: 2^-8*|ref| + 2e-5) {'ok' if ratio <= 1 else 'MISMATCH'}")
+        if not ratio <= 1:
+            fail(f"flash_attention fails the mask probe: {what}")
+        return ratio
 
     def scan_inputs(B, S, di, N, x_dt, dt_dt, bc_dt, dt_rank=0):
         """The reference test's distribution (dt = softplus(normal) * 0.1,
@@ -343,6 +389,10 @@ def main() -> None:
         dict(B=2, Sq=300, Sk=300, Hq=4, Hkv=1, D=128, window=100, cap=50.0, causal=True),
         dict(B=1, Sq=300, Sk=300, Hq=8, Hkv=2, D=16, window=0, cap=0.0, causal=True),
         dict(B=1, Sq=100, Sk=300, Hq=4, Hkv=2, D=32, window=0, cap=30.0, causal=False),
+        # the wgmma instance without a causal mask: its ragged last kv tile
+        # is masked only by the Sk test (301 keys: the probe's sum is odd)
+        dict(B=1, Sq=301, Sk=301, Hq=4, Hkv=2, D=128, window=0, cap=0.0, causal=False),
+        dict(B=1, Sq=100, Sk=300, Hq=4, Hkv=2, D=64, window=0, cap=30.0, causal=False),
     ]
     for window in (4096, 0):   # gemma2-27b prefill: local, global
         cases.append(dict(B=1, Sq=4600, Sk=4600, Hq=GEMMA_SHAPE["Hq"],
@@ -359,6 +409,9 @@ def main() -> None:
                              window=c["window"])
             worst[dname] = max(worst.get(dname, 0.0), err)
             del q, k, v
+        if c["Sq"] == c["Sk"] and c["D"] in (64, 128):   # the wgmma instance
+            probe(c["B"], c["Sq"], c["Hq"], c["Hkv"], c["D"], c, scale=c.get("scale", 0.0),
+                  softcap=c["cap"], causal=c["causal"], window=c["window"])
     torch.cuda.empty_cache()
 
     mcfg = cell_config(SERVE_MAMBA)
@@ -410,9 +463,12 @@ def main() -> None:
     pack_worst = 0
     for shape, tile in (((256, 128), (256, 128)), ((512, 256), (256, 128)),
                         ((64, 384), (8, 128))):       # tests/test_kernels.py
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             x = randn(*shape).to(dtype)
-            for out in (None, torch.int8, torch.bfloat16):
+            # a float16 input packs to int8, bf16 or f32 (no float16 output)
+            outs = (None, torch.int8, torch.bfloat16) if dtype != torch.float16 \
+                else (torch.int8, torch.bfloat16, torch.float32)
+            for out in outs:
                 pack_worst = max(pack_worst, compare_pack(
                     pack_kernel.pack_blocks(x, tile=tile, out_dtype=out),
                     pack_ref.pack_blocks_ref(x, tile=tile, out_dtype=out),
@@ -454,7 +510,20 @@ def main() -> None:
         f"equal to the numpy host path's byte for byte: {same_payload}; meta {meta}")
     if not same_payload:
         fail("the card's int8-block payload differs from the host path's")
-    del x, got, payload, host_payload
+    # float16 into the pack kernel: the card's payload against the numpy host
+    # codec's (both widen to f32 before anything is computed)
+    x16 = (randn(3 * CODEC_BLOCK + 17) * 9).to(torch.float16)
+    launches_before = LAUNCHES["staging_pack"]
+    payload16, meta16 = int8_codec.encode(x16)
+    host16, host_meta16 = int8_codec.encode(x16.cpu().numpy())
+    same16 = (bytes(memoryview(payload16)) == host16 and meta16 == host_meta16
+              and LAUNCHES["staging_pack"] == launches_before + 1)
+    log(f"int8-block payload of {x16.numel()} float16 values from the card "
+        f"({len(payload16)} B, one pack launch) equal to the numpy host path's "
+        f"byte for byte: {same16}; meta {meta16}")
+    if not same16:
+        fail("the card's float16 int8-block payload differs from the host path's")
+    del x, got, payload, host_payload, x16
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. + 5. each cell: serve, then its kernel's timing ----------------------
@@ -502,6 +571,23 @@ def main() -> None:
             with swapped(ssm_mod, "selective_scan", self.scan), \
                     swapped(transformer_mod, "apply_block", self.block):
                 yield
+
+    class AttentionLockstep:
+        """Serves the plain attention and runs the kernel beside it on each
+        call's q, k, v (each gemma2 layer's prefill), holding the kernel to
+        kernel_error_limit on the activations the model really serves. Its
+        kernel launches are comparisons."""
+
+        def __init__(self):
+            self.layers = []
+
+        def attention(self, q, k, v, **kw):
+            o_p = ops.gqa_attention_ref(q, k, v, **kw)
+            o_k = ops.gqa_attention(q, k, v, **kw)
+            max_err, ratio, mean_ref = attention_error(q, k, v, o_k, **kw)
+            self.layers.append(dict(window=kw.get("window", 0), max_err=max_err,
+                                    err_over_limit=ratio, mean_abs_ref=mean_ref))
+            return o_p
 
     def serve_cell(cell, plain_swap, plain_launches=None,
                    probe=None) -> tuple[dict, dict]:
@@ -577,19 +663,35 @@ def main() -> None:
 
     serve_stats = {}
     # gemma2-27b: flash attention
+    gcfg = cell_config(SERVE)
+    attn_lockstep = AttentionLockstep()
     serve_stats[SERVE["arch"]], fa_launches = serve_cell(
-        SERVE, swapped(attention_mod, "gqa_attention", ops.gqa_attention_ref))
+        SERVE, swapped(attention_mod, "gqa_attention", attn_lockstep.attention),
+        {"flash_attention": gcfg.n_layers, "ssm_scan": 0, "staging_pack": 0})
     torch.cuda.empty_cache()
+    att = attn_lockstep.layers
+    log("lockstep (gemma2-27b prefill, the kernel on each layer's served q, k, v): "
+        + "; ".join(f"layer {i + 1} (window {a['window']}): max|err| "
+                    f"{a['max_err']:.3g}, mean|ref| {a['mean_abs_ref']:.3g}, "
+                    f"max |err|/limit {a['err_over_limit']:.3f}"
+                    for i, a in enumerate(att)) + " (limit 1)")
+    if len(att) != gcfg.n_layers or any(not a["err_over_limit"] <= 1 for a in att):
+        fail(f"flash_attention disagrees with its plain version on a served "
+             f"layer's input ({len(att)} layers seen, want {gcfg.n_layers})")
+    serve_stats[SERVE["arch"]]["lockstep"] = att
 
     Bs, S = SERVE["batch"], SERVE["prompt_len"]
     g = GEMMA_SHAPE
     window_local = cell_config(SERVE).attn_window
     q, k, v = qkv(Bs, S, S, g["Hq"], g["Hkv"], g["D"], torch.bfloat16)
     t = {}
+    probe_ratio = {}
     for name, window in (("local", window_local), ("global", 0)):
         akw = dict(scale=g["scale"], softcap=g["cap"], causal=True, window=window)
         err, mean_ref = compare(q, k, v, f"serve shape B={Bs} S={S} ({name})",
                                 **akw)
+        probe_ratio[name] = probe(Bs, S, g["Hq"], g["Hkv"], g["D"],
+                                  f"serve shape B={Bs} S={S} ({name})", **akw)
         worst["serve_shape"] = max(worst.get("serve_shape", 0.0), err)
         t[name] = dict(
             ms=time_ms(lambda: ops.gqa_attention(q, k, v, **akw)),
@@ -599,15 +701,20 @@ def main() -> None:
         log(f"time {name} (window {window}, cap {g['cap']}): kernel "
             f"{t[name]['ms']:.3f} ms, plain {t[name]['plain_ms']:.3f} ms, bound "
             f"{t[name]['bound'][0]:.3f} ms ({t[name]['bound'][1]})")
-    # the library yardstick: SDPA has no softcap, so kernel and SDPA at cap 0
+    # the library yardstick: SDPA has no softcap, so kernel and SDPA at cap 0;
+    # cap 50 against cap 0 is what the softcap costs the kernel
     nocap = dict(scale=g["scale"], softcap=0.0, causal=True, window=0)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                       scale=g["scale"], enable_gqa=True))
     cap0_ms = time_ms(lambda: ops.gqa_attention(q, k, v, **nocap))
-    log(f"time global cap 0: kernel {cap0_ms:.3f} ms, "
-        f"scaled_dot_product_attention {library_ms} ms")
+    cap0_local_ms = time_ms(lambda: ops.gqa_attention(
+        q, k, v, **dict(nocap, window=window_local)))
+    log(f"time cap 0: kernel {cap0_ms:.3f} ms global, {cap0_local_ms:.3f} ms "
+        f"local; scaled_dot_product_attention (global) {library_ms} ms; the "
+        f"softcap costs {t['global']['ms'] - cap0_ms:.3f} ms global, "
+        f"{t['local']['ms'] - cap0_local_ms:.3f} ms local")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     log(f"gemma2-27b cell done at {time.perf_counter() - t_start:.1f} s")
@@ -842,6 +949,65 @@ def main() -> None:
         torch.cuda.empty_cache()
     log(f"in transit: {json.dumps({c: {k: v for k, v in s.items() if k != 'per_step_ms'} for c, s in intransit_stats.items()})}")
 
+    def intransit_bf16(codec: str) -> dict:
+        """One step of the mesh in bfloat16 through the port's sink, staging
+        and SAVIME (numpy has no bfloat16 here: the port holds its bits as
+        uint16). SAVIME must hold 2 bytes a value under attribute type
+        "bfloat16": with int8-block the decode of the card's pack, equal to
+        the same codec's encode and decode on the host; with none the
+        values' own bits. A query gives them back widened to float32."""
+        from repro_torch.tensors import bf16_to_f32, to_host
+        field = SeismicField(SeismicConfig(**MESH), device=dev).step(0).to(torch.bfloat16)
+        savime = SavimeServer().start()
+        staging = StagingServer(savime.addr, mem_capacity=mem_capacity,
+                                disk_dir=str(disk_dir), send_threads=2).start()
+        try:
+            sink = InTransitSink(staging.addr, InTransitConfig(
+                io_threads=2, tar_prefix="bf", codec=codec, decode_at="staging"))
+            try:
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                sink.stage_array("velocity", field, step=0)
+                sink.flush(timeout=600)
+                step_ms = (time.perf_counter() - t0) * 1e3
+                launches = dict(LAUNCHES)
+            finally:
+                sink.close()
+            held_tar = savime.engine.tars["bf_velocity"]
+            held = held_tar.select("v").reshape(-1)
+            with AnalysisSession(savime.addr) as an:
+                got = an.execute(tar("bf_velocity").attr("v").select()).array.reshape(-1)
+        finally:
+            staging.stop()
+            savime.stop()
+        if codec == "int8-block":
+            host = Int8BlockCodec()
+            want = host.decode(*host.encode(field.cpu())).view(np.uint16)
+        else:
+            want = to_host(field).reshape(-1)
+        equal = held.dtype == np.uint16 and held.tobytes() == want.tobytes()
+        widened = got.dtype == np.float32 and np.array_equal(got, bf16_to_f32(want))
+        err = float(np.abs(bf16_to_f32(held) - field.float().cpu().numpy().reshape(-1)).max())
+        log(f"in transit bf16 [{codec}]: one {MESH} step staged and flushed in "
+            f"{step_ms:.1f} ms; launches {launches}; SAVIME attribute type "
+            f"{held_tar.attrs['v'].dtype!r}, {held.nbytes} B held ({held.dtype}); "
+            f"equal to the host codec's decode (int8-block) or the values' bits "
+            f"(none) byte for byte: {equal}; query widened to float32 exactly: "
+            f"{widened}; max|field - held| {err:.4g}")
+        want_launches = {k: int(k == "staging_pack" and codec == "int8-block")
+                         for k in launches}
+        if not (equal and widened and launches == want_launches
+                and held_tar.attrs["v"].dtype == "bfloat16"
+                and held.nbytes == 2 * mesh_n):
+            fail(f"in transit bf16 [{codec}]: SAVIME does not hold what was staged")
+        return {"launches": launches["staging_pack"], "step_ms": step_ms,
+                "max_abs_err": err}
+
+    for codec in ("int8-block", "none"):
+        intransit_stats[f"bf16 {codec}"] = intransit_bf16(codec)
+        torch.cuda.empty_cache()
+
     # -- 7. the pack kernel's time at the mesh -----------------------------------
     x = SeismicField(SeismicConfig(**MESH), device=dev).step(INTRANSIT_STEPS - 1).float()
     pack_err = compare_pack(pack_ops.quantize_blocks(x, block_elems=CODEC_BLOCK),
@@ -895,6 +1061,10 @@ def main() -> None:
         "library_ms": library_ms,
         "library_call": "scaled_dot_product_attention(is_causal, enable_gqa), cap 0",
         "ms_cap0": cap0_ms,
+        "ms_cap0_local": cap0_local_ms,
+        "sass_hgmma": hgmma,
+        "mask_probe_err_over_limit": probe_ratio,
+        "lockstep_err_over_limit": [a["err_over_limit"] for a in att],
         "ms_local": t["local"]["ms"],
         "plain_ms_local": t["local"]["plain_ms"],
         "bound_ms_local": t["local"]["bound"][0],

@@ -17,6 +17,8 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 
+from repro_torch.tensors import np_dtype as _wire_dtype
+
 
 class CodecError(Exception):
     """Base class for codec failures."""
@@ -54,11 +56,12 @@ _DTYPES = {
 
 
 def np_dtype(dtype: str):
-    """Map a wire dtype string to a numpy dtype, or None if unknown."""
+    """Map a wire dtype string to a numpy dtype, or None if unknown
+    ("bfloat16" to uint16, the port's representation of its bits)."""
     if dtype in _DTYPES:
         return np.dtype(_DTYPES[dtype])
     try:
-        return np.dtype(dtype)
+        return _wire_dtype(dtype)
     except TypeError:
         return None
 

@@ -11,6 +11,11 @@ whose amax is below ``127 * 2**-126`` gets a subnormal scale with few
 significant bits; ``|x/scale|`` may then pass 127 and clip, and the error
 is bounded by the block's amax instead.
 
+A numpy bfloat16 (the port holds its bits as uint16, repro_torch.tensors)
+is not a float to numpy, so it passes through, as the reference's numpy
+bfloat16 (kind "V") does. A bfloat16 *tensor* is quantized, and decodes to
+bfloat16 by rounding the float32 dequantized values to nearest even.
+
 For a torch tensor (float32, float16 or bfloat16) the quantize+pack step
 runs through the ``kernels/staging_pack`` quantizing variant
 (``ops.quantize_blocks``): on a CUDA tensor the hand-written kernel, so
@@ -28,7 +33,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.tensors import dtype_name, to_host
+from repro_torch.tensors import BF16, dtype_name, f32_to_bf16, to_host
 
 from .base import Codec, as_bytes_array, np_dtype, register_codec
 
@@ -118,7 +123,8 @@ class Int8BlockCodec(Codec):
             return raw
         n = int(meta["n"])
         block = int(meta.get("block", BLOCK))
-        dt = np.dtype(meta["dtype"])
+        bf16 = meta["dtype"] == BF16
+        dt = np.dtype(np.float32) if bf16 else np.dtype(meta["dtype"])
         nb = -(-n // block)
         if raw.size != nb * 4 + n:
             raise ValueError(
@@ -130,4 +136,5 @@ class Int8BlockCodec(Codec):
         cdt = dt if dt.itemsize >= 4 else np.dtype(np.float32)
         dq = (q.reshape(nb, block).astype(cdt) *
               scales[:, None].astype(cdt)).reshape(-1)[:n]
-        return np.ascontiguousarray(dq.astype(dt)).view(np.uint8)
+        out = f32_to_bf16(dq) if bf16 else dq.astype(dt)
+        return np.ascontiguousarray(out).view(np.uint8)

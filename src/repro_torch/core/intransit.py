@@ -168,14 +168,27 @@ class InTransitSink:
         numpy array; the write itself happens on libstaging I/O threads. A
         CUDA float tensor staged with ``codec="int8-block"`` stays on the
         card: the codec packs it there. Anything else is copied to the host
-        here, where the reference calls ``np.asarray``."""
+        here, where the reference calls ``np.asarray``; a bfloat16 tensor
+        becomes its bits (``repro_torch.tensors``), staged as "bfloat16" and
+        never quantized by ``quantize="int8"``, as the reference's numpy
+        bfloat16 is not (it is not of kind "f").
+
+        The buffer contract is the paper's: what is staged must not be
+        mutated until ``sync()`` (or ``flush()``) returns. A tensor kept on
+        the card, a CPU tensor and a numpy array are held as they are, not
+        copied, until the write is acknowledged, and a replayed write
+        (after a lost connection) sends or encodes them again as they stand
+        then. Only a CUDA tensor copied to the host here may be reused at
+        once. Stage a tensor made fresh for the step, or a copy, when the
+        producer updates it in place (an optimizer's parameters and
+        gradients)."""
         on_card = (isinstance(arr, torch.Tensor) and arr.is_cuda
                    and arr.is_floating_point()
                    and self.cfg.codec == "int8-block"
                    and self.cfg.quantize != "int8")
         x = arr if on_card else host_array(arr)
         shape = tuple(x.shape)
-        dtype = dtype_name(x) if on_card else str(x.dtype)
+        dtype = dtype_name(arr) if isinstance(arr, torch.Tensor) else str(x.dtype)
         tar = f"{self.cfg.tar_prefix}_{name}"
         quantized = not on_card and self.cfg.quantize == "int8" and \
             x.dtype.kind == "f"

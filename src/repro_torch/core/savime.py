@@ -31,6 +31,7 @@ import numpy as np
 
 from repro_torch.core.tars import TAR, Attribute, Dimension
 from repro_torch.core import wire
+from repro_torch.tensors import BF16, bf16_to_f32, np_dtype
 
 
 class SavimeError(RuntimeError):
@@ -91,7 +92,7 @@ class SavimeEngine:
 
     # -- dataset ingestion (binary path) -----------------------------------
     def load_dataset(self, name: str, dtype: str, payload) -> None:
-        arr = np.frombuffer(payload, dtype=np.dtype(dtype))
+        arr = np.frombuffer(payload, dtype=np_dtype(dtype))
         with self._lock:
             self.datasets[name] = arr
             self.stats["bytes_ingested"] += arr.nbytes
@@ -115,6 +116,14 @@ class SavimeEngine:
         if handler is None:
             raise SavimeError(f"unknown operator {fn!r}")
         return handler(*args)
+
+    def result_dtype(self, q: str, res: np.ndarray) -> str:
+        """The wire dtype of a query's array: a selected attribute's DDL
+        type (bfloat16 is held as uint16 bits), else the array's own."""
+        fn, args = _parse_call(q)
+        if fn == "select":
+            return self._tar(args[0]).attrs[args[1]].dtype
+        return str(res.dtype)
 
     def _q_create_tar(self, name: str, dims: str, attrs: str) -> str:
         dl = []
@@ -360,7 +369,8 @@ class SavimeServer:
                 # range-filtered results may be strided views; memoryview
                 # cast("B") requires C-contiguity
                 res = np.ascontiguousarray(res)
-                return {"ok": True, "dtype": str(res.dtype),
+                return {"ok": True,
+                        "dtype": self.engine.result_dtype(header["q"], res),
                         "shape": list(res.shape)}, memoryview(res).cast("B")
             return {"ok": True, "result": res}, None
         if op == "stats":
@@ -389,7 +399,10 @@ class SavimeClient:
         if not header.get("ok"):
             raise SavimeError(header.get("error", "?"))
         if "dtype" in header:
-            return np.frombuffer(payload, header["dtype"]).reshape(header["shape"])
+            arr = np.frombuffer(payload, np_dtype(header["dtype"]))
+            if header["dtype"] == BF16:    # widened to compute with
+                arr = bf16_to_f32(arr)
+            return arr.reshape(header["shape"])
         return header.get("result")
 
     def load_dataset(self, name: str, dtype: str, payload) -> None:

@@ -20,6 +20,8 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
+from repro_torch.tensors import BF16, bf16_to_f32, np_dtype
+
 
 @dataclasses.dataclass(frozen=True)
 class Dimension:
@@ -47,7 +49,7 @@ class Attribute:
 
     @property
     def np_dtype(self):
-        return np.dtype(self.dtype)
+        return np_dtype(self.dtype)
 
 
 @dataclasses.dataclass
@@ -129,6 +131,12 @@ class TAR:
             out[dst] = st.data[attr][sl]
         return out
 
+    def _values(self, attr: str, lo=None, hi=None) -> np.ndarray:
+        """``select`` in a type numpy computes with: bfloat16 bits widened
+        to float32."""
+        box = self.select(attr, lo, hi)
+        return bf16_to_f32(box) if self.attrs[attr].dtype == BF16 else box
+
     def aggregate(self, attr: str, op: str,
                   lo: Optional[tuple[int, ...]] = None,
                   hi: Optional[tuple[int, ...]] = None) -> float:
@@ -136,12 +144,12 @@ class TAR:
             "sum": np.sum, "mean": np.mean, "max": np.max, "min": np.min,
             "std": np.std, "count": np.size,
         }
-        return float(ops[op](self.select(attr, lo, hi)))
+        return float(ops[op](self._values(attr, lo, hi)))
 
     def filter(self, attr: str, pred: Callable[[np.ndarray], np.ndarray],
                lo=None, hi=None) -> np.ndarray:
         """Returns (n_hits, ndim+1) array: index coords + value per hit."""
-        box = self.select(attr, lo, hi)
+        box = self._values(attr, lo, hi)
         lo = tuple(d.lower for d in self.dims) if lo is None else tuple(lo)
         idx = np.argwhere(pred(box))
         vals = box[tuple(idx.T)]

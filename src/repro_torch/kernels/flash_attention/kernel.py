@@ -5,6 +5,10 @@ The kernel reads q (B, Sq, Hq, D) and k/v (B, Sk, Hkv, D) in place through
 their strides (the head dim must be contiguous) and writes a new
 (B, Sq, Hq, D) tensor. It takes float32 and bfloat16 and head dims
 16, 32, 64 and 128, and raises on anything else: there is no fallback.
+bfloat16 at head dim 64 or 128 runs the tensor-core instance, which loads
+through TMA: there each of q, k, v must start on a 16-byte boundary and
+every stride of a dimension longer than 1 must be a multiple of 16 bytes
+(``check_inputs`` raises otherwise; nothing is copied).
 """
 from __future__ import annotations
 
@@ -15,7 +19,9 @@ import torch
 from repro_torch.kernels import LAUNCHES, build
 
 HEAD_DIMS = (16, 32, 64, 128)
+TENSOR_CORE_HEAD_DIMS = (64, 128)   # bf16 only
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TMA_ALIGN = 16
 _MAX_GRID_Y = 65535
 
 
@@ -28,6 +34,16 @@ def _library() -> ctypes.CDLL:
                        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+def _strides(t: torch.Tensor) -> tuple[int, ...]:
+    """Element strides of (B, S, H); a dimension of length 1 is never
+    stepped, so its stride is given as if the tensor were contiguous."""
+    out, inner = [], t.shape[-1]
+    for i in (2, 1, 0):
+        out.append(t.stride(i) if t.shape[i] > 1 else inner)
+        inner *= t.shape[i]
+    return tuple(reversed(out))
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -48,6 +64,14 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head dim must be contiguous")
+    if q.dtype == torch.bfloat16 and D in TENSOR_CORE_HEAD_DIMS:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % _TMA_ALIGN or any(
+                    s * t.element_size() % _TMA_ALIGN for s in _strides(t)):
+                raise ValueError(
+                    f"{name} (strides {t.stride()}, address {t.data_ptr():#x}) "
+                    f"breaks TMA's rule: the address and every stride of a "
+                    f"dimension longer than 1 a multiple of {_TMA_ALIGN} bytes")
     if B * Hq > _MAX_GRID_Y:
         raise ValueError(f"B*Hq = {B * Hq} exceeds {_MAX_GRID_Y}")
     if window < 0:
@@ -77,7 +101,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return o
     lib = _library()
     strides = (ctypes.c_int64 * 12)(*[s for t in (q, k, v, o)
-                                      for s in t.stride()[:3]])
+                                      for s in _strides(t)])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention_fwd(

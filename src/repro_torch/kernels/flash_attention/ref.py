@@ -1,11 +1,17 @@
 """Plain PyTorch version of the flash-attention kernel: dense softmax
-attention with fp32 scores, the port of ``repro/kernels/flash_attention/ref.py``.
+attention with fp32 scores, the port of ``repro/kernels/flash_attention/ref.py``;
+the per-element limit the CUDA kernel is held to against it; and the mask
+probe, an input whose answer is exact.
 """
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -2.0e38
+# kernel against the plain version: fp32 sums taken in another order
+ATOL = 2e-5
+# rounding to nearest bf16 moves a value by at most half a step: 2**-8 of it
+BF16_ROUNDING = 2.0 ** -8
 
 # Rows of the flattened (batch*head) axis are processed in chunks so that the
 # dense fp32 score tensor stays under this many elements. Rows are
@@ -42,3 +48,63 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
         out[r0:r1] = (p @ vf).to(q.dtype)
     return out
+
+
+def kernel_error_limit(o_ref: torch.Tensor, pv_abs: torch.Tensor | None = None,
+                       *, dtype: torch.dtype) -> torch.Tensor:
+    """How far, element by element, the CUDA kernel's output in ``dtype`` may
+    lie from ``o_ref``, the plain version run in f32 on the same input values.
+
+    float32: ATOL. The kernel runs fp32 FMAs; only the order of the sums
+    differs.
+
+    bfloat16: 2**-8 * |o_ref| + 2**-8 * pv_abs + ATOL, where ``pv_abs`` is
+    the plain version run on |v| (the softmax weights P applied to |V|).
+    The tensor-core kernel rounds each probability p to bf16 before P V:
+    half a bf16 step, at most 2**-8 of p, so the output moves by at most
+    2**-8 * pv_abs (much less where the roundings of different p cancel);
+    it rounds its output to bf16, at most 2**-8 * |o|. ATOL covers the f32
+    sums and exp, which are ~1e-6 of the values. The second term does not
+    shrink where o is near 0, so it is needed whenever p is not exact in
+    bf16. (The reference's own bf16 limit is atol 2e-2.)
+
+    ``pv_abs=None`` gives the tight limit 2**-8 * |o_ref| + ATOL, for inputs
+    where every p is exact in bf16, as in the mask probe."""
+    if dtype == torch.float32:
+        return torch.full_like(o_ref, ATOL)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"no limit for {dtype}")
+    lim = BF16_ROUNDING * o_ref.abs() + ATOL
+    if pv_abs is not None:
+        lim = lim + BF16_ROUNDING * pv_abs
+    return lim
+
+
+def mask_probe(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int, *,
+               dtype: torch.dtype = torch.float32,
+               device: torch.device | str = "cpu"):
+    """q = 0 and v[b, k, h, :] = (-1)**k in (B, S, H, D) layout. Every score
+    is 0 and every p is exactly 1 in any precision, so each output row is the
+    mean of (-1)**k over its visible keys: exact, and one key too many or
+    too few changes it by at least 1 / (visible keys + 1)."""
+    q = torch.zeros((B, Sq, Hq, D), dtype=dtype, device=device)
+    k = torch.zeros((B, Sk, Hkv, D), dtype=dtype, device=device)
+    sign = 1.0 - 2.0 * (torch.arange(Sk, device=device) % 2).to(dtype)
+    v = sign[None, :, None, None].expand(B, Sk, Hkv, D).contiguous()
+    return q, k, v
+
+
+def mask_probe_answer(B: int, Sq: int, Sk: int, Hq: int, D: int, *,
+                      causal: bool, window: int,
+                      device: torch.device | str = "cpu") -> torch.Tensor:
+    """The probe's exact output (B, Sq, Hq, D) in f32: each row sees the keys
+    lo..hi, whose (-1)**k sum to 0 when their count n is even and to
+    (-1)**lo when it is odd."""
+    qp = torch.arange(Sq, device=device)
+    hi = torch.clamp(qp, max=Sk - 1) if causal else torch.full_like(qp, Sk - 1)
+    lo = torch.clamp(qp - window + 1, min=0) if window else torch.zeros_like(qp)
+    n = (hi - lo + 1).to(torch.float64)
+    odd = (hi - lo + 1) % 2 == 1
+    row = torch.where(odd, (1.0 - 2.0 * (lo % 2)).to(torch.float64) / n,
+                      torch.zeros_like(n)).to(torch.float32)
+    return row[None, :, None, None].expand(B, Sq, Hq, D)

@@ -22,7 +22,9 @@
 // Design (simple and right first):
 //   * one thread block per output block, 256 threads, each moving groups of
 //     4 consecutive elements of one tile row (a 16-byte load of fp32, 8 of
-//     bf16; neighbouring threads on neighbouring addresses);
+//     bf16 or fp16; neighbouring threads on neighbouring addresses);
+//   * fp32, bf16 and fp16 inputs; a 16-bit input is widened to fp32 exactly
+//     before anything is computed, as the host codec widens it;
 //   * the first 4096 elements of a block (the codec's whole block: 16 KB of
 //     fp32) stay in registers between the amax and the quantize, so device
 //     memory is read once; a larger tile reads its remainder a second time;
@@ -44,6 +46,7 @@
 // arithmetic (two divisions and a few compares per element) is far below
 // the fp32 peak.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,7 +56,7 @@ constexpr int kThreads = 256;
 constexpr int kVec = 4;      // elements a thread moves at a time
 constexpr int kCached = 4;   // groups of kVec a thread keeps in registers
 
-enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
+enum DType { kF32 = 0, kBF16 = 1, kI8 = 2, kF16 = 3 };   // kF16: input only
 
 struct Params {
   const void* x;
@@ -68,6 +71,17 @@ struct Params {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
+// Two 16-bit values packed in one 32-bit word, widened to fp32.
+__device__ __forceinline__ void widen2(uint32_t w, float* v, __nv_bfloat16) {
+  const __nv_bfloat162 t = *reinterpret_cast<const __nv_bfloat162*>(&w);
+  v[0] = __low2float(t); v[1] = __high2float(t);
+}
+__device__ __forceinline__ void widen2(uint32_t w, float* v, __half) {
+  const __half2 t = *reinterpret_cast<const __half2*>(&w);
+  v[0] = __low2float(t); v[1] = __high2float(t);
 }
 
 // Loads the kVec elements of group g of block (i, j) as fp32; elements at or
@@ -84,10 +98,8 @@ __device__ __forceinline__ void load_group(const Params& p, int64_t row0,
       v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
     } else {
       const uint2 t = __ldg(reinterpret_cast<const uint2*>(x));
-      const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
-      const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
-      v[0] = __low2float(lo); v[1] = __high2float(lo);
-      v[2] = __low2float(hi); v[3] = __high2float(hi);
+      widen2(t.x, v, Tin());
+      widen2(t.y, v + 2, Tin());
     }
     return;
   }
@@ -212,12 +224,12 @@ void launch(const Params& p, int out_dtype, int64_t n_blocks, cudaStream_t s) {
 
 extern "C" {
 
-// x: row-major (R, C) in in_dtype (0 float32, 1 bfloat16), of which the
+// x: row-major (R, C) in in_dtype (0 float32, 1 bfloat16, 3 float16), of which the
 // first n_valid elements are present and the rest read as 0. out: (R/TR *
 // C/TC, TR*TC) contiguous in out_dtype (0 float32, 1 bfloat16, 2 int8: the
 // fused quantize); scales: (R/TR * C/TC,) float32. R % TR == C % TC == 0,
 // TC % 4 == 0, at least one block. vec_ok: x is 16-byte (float32) or 8-byte
-// (bfloat16) aligned. Launches on `stream` and returns cudaGetLastError()
+// (bfloat16, float16) aligned. Launches on `stream` and returns cudaGetLastError()
 // (0 on success); never synchronises.
 int repro_staging_pack(const void* x, void* out, float* scales, int64_t R,
                        int64_t C, int TR, int TC, int64_t n_valid,
@@ -225,7 +237,7 @@ int repro_staging_pack(const void* x, void* out, float* scales, int64_t R,
   if (TR <= 0 || TC <= 0 || TC % kVec || R <= 0 || C <= 0 || R % TR ||
       C % TC || n_valid < 0 || n_valid > R * C ||
       static_cast<int64_t>(TR) * TC > (int64_t{1} << 30) ||
-      (in_dtype != kF32 && in_dtype != kBF16) ||
+      (in_dtype != kF32 && in_dtype != kBF16 && in_dtype != kF16) ||
       (out_dtype != kF32 && out_dtype != kBF16 && out_dtype != kI8))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n_blocks = (R / TR) * (C / TC);
@@ -239,6 +251,8 @@ int repro_staging_pack(const void* x, void* out, float* scales, int64_t R,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == kBF16)
     launch<__nv_bfloat16>(p, out_dtype, n_blocks, s);
+  else if (in_dtype == kF16)
+    launch<__half>(p, out_dtype, n_blocks, s);
   else
     launch<float>(p, out_dtype, n_blocks, s);
   return static_cast<int>(cudaGetLastError());

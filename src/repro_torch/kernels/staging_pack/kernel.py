@@ -1,10 +1,10 @@
 """Launcher for the CUDA egress pack kernel (``csrc/staging_pack.cu``), the
 Hopper counterpart of ``repro/kernels/staging_pack/kernel.py``.
 
-The kernel re-tiles a row-major (R, C) float32 or bfloat16 array into
-block-major (n_blocks, TR*TC) and, for an int8 output, quantizes each block
-with its own f32 scale; other outputs (float32, bfloat16) are a cast with
-scales 1. The input may hold fewer than R*C elements: the missing tail
+The kernel re-tiles a row-major (R, C) float32, bfloat16 or float16 array
+into block-major (n_blocks, TR*TC) and, for an int8 output, quantizes each
+block with its own f32 scale; other outputs (float32, bfloat16) are a cast
+with scales 1. The input may hold fewer than R*C elements: the missing tail
 counts as zeros, so a caller never pads on the card. It takes
 R % TR == C % TC == 0 and TC % 4 == 0, and raises on anything else: there
 is no fallback.
@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, build
 
-_IN = {torch.float32: 0, torch.bfloat16: 1}
+_IN = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3}
 _OUT = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _VEC = 4           # elements a thread moves at a time (csrc kVec)
 _MAX_BLOCK = 1 << 30

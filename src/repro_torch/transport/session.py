@@ -108,7 +108,8 @@ class _Journaled:
     def __init__(self, name, dtype, arr, epoch, outer, deadline):
         self.name = name
         self.dtype = dtype
-        self.arr = arr              # the pinned buffer — the replay source
+        self.arr = arr              # the pinned buffer (not a copy): the
+        #                             replay source
         self.epoch = epoch
         self.outer = outer
         self.deadline = deadline
@@ -218,6 +219,12 @@ class TransferSession:
         ``buf`` may be a torch tensor on any device: it is pinned as it is
         and handed to the transport, whose sender encodes it where it lies
         or copies it to the host (``nbytes`` applies to host buffers only).
+
+        Every buffer, host or tensor, is held as it is, not copied, until
+        the write is acknowledged, and the journal replays it from there:
+        a replay after a lost connection sends what the buffer holds at
+        that time. So the caller must not mutate it until ``sync()``
+        returns (the paper's rule, and the reference's for numpy input).
         """
         self._check_live()
         if isinstance(buf, torch.Tensor):

@@ -4,7 +4,10 @@ run in interpret mode and against its dense oracle.
 
 Tolerances are the reference's own (tests/test_kernels.py): 2e-6 for f32,
 2e-2 for bf16. The CUDA kernel itself runs only on the card
-(tests/test_torch_cuda.py, chip_smoke.py).
+(tests/test_torch_cuda.py, chip_smoke.py); here a torch emulation of its
+bf16 rounding is held to ``ref.kernel_error_limit``, the limit the card
+holds the kernel to, and the mask probe (an input whose answer is exact) is
+shown to catch a mask that is one key off.
 """
 import pytest
 
@@ -123,3 +126,152 @@ def test_wrapper_has_no_fallback_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         ops.gqa_attention(q, kv, kv)
     assert LAUNCHES["flash_attention"] == before
+
+
+def _emulate_tensor_core_kernel(q, k, v, *, groups, scale, softcap, causal,
+                                window, block_k=64):
+    """The bf16 tensor-core kernel's arithmetic, in torch on the CPU:
+    head-major q (BHq, Sq, D), k/v (BHkv, Sk, D) in bf16; f32 scores,
+    64-key tiles, an online softmax in f32, each p rounded to bf16 before
+    P V (f32 sums), l summing the f32 p, the output rounded to bf16."""
+    BH, Sq, D = q.shape
+    Sk = k.shape[1]
+    kv = torch.arange(BH) // groups
+    kf, vf = k[kv].float(), v[kv].float()
+    qp = torch.arange(Sq)[:, None]
+    m = torch.full((BH, Sq, 1), ref.NEG_INF)
+    l = torch.zeros((BH, Sq, 1))
+    acc = torch.zeros((BH, Sq, D))
+    for k0 in range(0, Sk, block_k):
+        kp = torch.arange(k0, min(k0 + block_k, Sk))[None, :]
+        s = (q.float() @ kf[:, k0:k0 + block_k].transpose(1, 2)) * scale
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        vis = torch.ones_like(qp == kp)
+        if causal:
+            vis &= kp <= qp
+        if window:
+            vis &= qp - kp < window
+        s = torch.where(vis, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vf[:, k0:k0 + block_k]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("cfg", REF_CASES)
+def test_tensor_core_rounding_stays_within_the_kernel_limit(cfg):
+    """At the reference's four cases the emulated kernel lies within
+    kernel_error_limit of the plain version in f32; without its P V term
+    (the limit set for an f32-FMA kernel) it would not."""
+    B, S, Hq, Hkv, D = cfg["B"], cfg["S"], cfg["Hq"], cfg["Hkv"], cfg["D"]
+    _, (q, k, v) = _inputs([(B * Hq, S, D), (B * Hkv, S, D), (B * Hkv, S, D)],
+                           jnp.bfloat16, 7)
+    kw = dict(groups=Hq // Hkv, scale=D ** -0.5, softcap=cfg["cap"],
+              causal=cfg["causal"], window=cfg["window"])
+    got = _emulate_tensor_core_kernel(q, k, v, **kw).float()
+    want = ref.attention_ref(q.float(), k.float(), v.float(), **kw)
+    pv_abs = ref.attention_ref(q.float(), k.float(), v.float().abs(), **kw)
+    err = (got - want).abs()
+    assert bool((err <= ref.kernel_error_limit(want, pv_abs,
+                                               dtype=torch.bfloat16)).all())
+    assert not bool((err <= ref.kernel_error_limit(
+        want, dtype=torch.bfloat16)).all())
+
+
+PROBE_CASES = [(2, 256, 256, 4, 2, 64, True, 0), (1, 512, 512, 8, 1, 128, True, 0),
+               (2, 256, 256, 4, 4, 64, True, 128), (1, 256, 256, 2, 2, 64, False, 0),
+               (1, 300, 300, 4, 2, 32, True, 100), (1, 100, 300, 2, 1, 16, False, 7),
+               (1, 300, 200, 2, 2, 16, True, 0)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", PROBE_CASES)
+def test_mask_probe_answer_is_the_plain_versions(B, Sq, Sk, Hq, Hkv, D, causal,
+                                                 window):
+    q, k, v = ref.mask_probe(B, Sq, Sk, Hq, Hkv, D)
+    want = ref.mask_probe_answer(B, Sq, Sk, Hq, D, causal=causal, window=window)
+    for cap in (0.0, 50.0):
+        o = ops.gqa_attention_ref(q, k, v, softcap=cap, causal=causal,
+                                  window=window)
+        assert torch.equal(o, want)
+    # the emulated tensor-core kernel is exact there but for its bf16 output
+    bh = lambda x: x.transpose(1, 2).reshape(-1, x.shape[1], D)  # noqa: E731
+    emu = _emulate_tensor_core_kernel(
+        bh(q).bfloat16(), bh(k).bfloat16(), bh(v).bfloat16(), groups=Hq // Hkv,
+        scale=D ** -0.5, softcap=50.0, causal=causal, window=window)
+    emu = emu.reshape(B, Hq, Sq, D).transpose(1, 2).float()
+    assert bool(((emu - want).abs() <= ref.kernel_error_limit(
+        want, dtype=torch.bfloat16)).all())
+
+
+def _dense_with_mask(q, k, v, mask):
+    """Plain attention under an explicit (Sq, Sk) mask: a mask the kernel's
+    arguments cannot express, as a broken kernel would apply it."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k.repeat_interleave(
+        q.shape[2] // k.shape[2], 2))
+    p = torch.softmax(torch.where(mask, s, -torch.inf), -1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.repeat_interleave(
+        q.shape[2] // k.shape[2], 2))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window,off", [
+    (*c, off) for c in PROBE_CASES if c[6]
+    for off in ("diagonal+1", "diagonal-1") + (
+        ("window+1", "window-1") if c[7] else ())])
+def test_mask_probe_catches_a_mask_one_key_off(B, Sq, Sk, Hq, Hkv, D, causal,
+                                               window, off):
+    """A mask one key off at the window's edge or the diagonal breaks the
+    probe's tight limit, 2**-8 * |o| + ATOL: one key more or less moves a
+    row by at least 1 / (its keys + 1), far beyond it."""
+    q, k, v = ref.mask_probe(B, Sq, Sk, Hq, Hkv, D)
+    want = ref.mask_probe_answer(B, Sq, Sk, Hq, D, causal=causal, window=window)
+    qp, kp = torch.arange(Sq)[:, None], torch.arange(Sk)[None, :]
+    shift = {"window+1": (0, 1), "window-1": (0, -1), "diagonal+1": (1, 0),
+             "diagonal-1": (-1, 0)}[off]
+    mask = kp <= qp + shift[0]
+    if window:
+        mask &= qp - kp < window + shift[1]
+    mask[:, 0] |= ~mask.any(1)   # keep every row's softmax defined
+    o = _dense_with_mask(q, k, v, mask)
+    lim = ref.kernel_error_limit(want, dtype=torch.bfloat16)
+    assert not bool(((o - want).abs() <= lim).all())
+    assert float(((o - want).abs() / lim).max()) > 4
+
+
+def test_kernel_limit_by_dtype():
+    o = torch.tensor([0.0, 1.0, -3.0])
+    pv = torch.tensor([2.0, 1.0, 0.5])
+    assert torch.equal(ref.kernel_error_limit(o, pv, dtype=torch.float32),
+                       torch.full((3,), ref.ATOL))
+    assert torch.allclose(ref.kernel_error_limit(o, pv, dtype=torch.bfloat16),
+                          2 ** -8 * (o.abs() + pv) + ref.ATOL)
+    assert torch.allclose(ref.kernel_error_limit(o, dtype=torch.bfloat16),
+                          2 ** -8 * o.abs() + ref.ATOL)
+    with pytest.raises(ValueError):
+        ref.kernel_error_limit(o, dtype=torch.float16)
+
+
+def test_tensor_core_instance_checks_tma_alignment():
+    """bf16 at head dim 64/128 loads through TMA: the address and every
+    stride of a dimension longer than 1 must be a multiple of 16 bytes. The
+    FMA instance (f32, or bf16 at head dim 16/32) has no such rule."""
+    def make(dtype, width, d=64, offset=0, S=8, H=4):
+        flat = torch.zeros(S * H * width + offset, dtype=dtype)
+        return flat[offset:].view(1, S, H, width)[..., :d]
+    kv = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    ok = dict(causal=True, window=0)
+    kernel.check_inputs(make(torch.bfloat16, 64), kv, kv, **ok)
+    kernel.check_inputs(make(torch.bfloat16, 72), kv, kv, **ok)   # 144 B rows
+    with pytest.raises(ValueError, match="TMA"):
+        kernel.check_inputs(make(torch.bfloat16, 68), kv, kv, **ok)  # 136 B
+    with pytest.raises(ValueError, match="TMA"):
+        kernel.check_inputs(make(torch.bfloat16, 64, offset=4), kv, kv, **ok)
+    kernel.check_inputs(make(torch.float32, 68), kv.float(), kv.float(), **ok)
+    kv16 = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16)
+    kernel.check_inputs(make(torch.bfloat16, 20, d=16), kv16, kv16, **ok)
+    # a dimension of length 1 is never stepped: its stride is not checked
+    one = torch.zeros(1, 8, 64, 1, dtype=torch.bfloat16).transpose(2, 3)
+    kernel.check_inputs(one, one[:, :, :1], one[:, :, :1], **ok)

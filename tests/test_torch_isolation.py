@@ -1,6 +1,6 @@
 """The port stands alone: no file of src/repro_torch/ nor chip_smoke.py
-imports jax or anything of repro; every port module imports with both
-blocked; entry points refuse to run on the CPU unless asked to; the serve
+imports jax, ml_dtypes (numpy's bfloat16, which jax brings) or anything of
+repro; every port module imports with all of them blocked; entry points refuse to run on the CPU unless asked to; the serve
 launcher stages its latencies in transit and rejects the flags of what a
 later slice brings; chip_smoke.py fails without a GPU and outside a
 checkout."""
@@ -19,7 +19,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "torch_simulation_intransit.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -53,15 +53,17 @@ def test_port_files_import_neither_jax_nor_repro():
 
 
 def test_every_port_module_imports_with_jax_and_repro_blocked():
+    """jax, jaxlib, ml_dtypes and repro blocked."""
     mods = _port_modules()
     assert "repro_torch.launch.serve" in mods and "repro_torch.convert" in mods
     prog = (
         "import importlib, sys\n"
-        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        f"for name in {FORBIDDEN!r}:\n"
         "    sys.modules[name] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert not [m for m in sys.modules if m.startswith(('jax.', 'repro.'))]\n"
+        "assert not [m for m in sys.modules if m.startswith(\n"
+        "    ('jax.', 'repro.', 'ml_dtypes.'))]\n"
         f"print('imported', {len(mods)})\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", prog], env=env,
@@ -127,7 +129,7 @@ def test_serve_module_runs_falcon_mamba_on_the_cpu():
     """``python -m repro_torch.launch.serve --arch falcon-mamba-7b --smoke
     --device cpu``, as a user would run it, with jax and repro blocked."""
     prog = ("import runpy, sys\n"
-            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            f"for name in {FORBIDDEN!r}:\n"
             "    sys.modules[name] = None\n"
             "sys.argv = ['serve', '--arch', 'falcon-mamba-7b', '--smoke',\n"
             "            '--device', 'cpu', '--prompt-len', '24',\n"

@@ -191,7 +191,7 @@ def test_cpu_tensor_takes_the_plain_version_and_launches_nothing():
 
 
 @pytest.mark.parametrize("bad,match", [
-    (dict(dtype=torch.float16), "input dtype"),
+    (dict(dtype=torch.float64), "input dtype"),   # float16 is taken
     (dict(out=torch.int32), "out_dtype"),
     (dict(shape=(100, 128)), "whole number"),
     (dict(tile=(8, 6), shape=(64, 6)), "multiple of 4"),
