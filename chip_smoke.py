@@ -6,15 +6,20 @@ Phases, each of which makes the script exit non-zero when it fails:
   2. build: compiles every CUDA kernel of the port from the sources in
      this checkout (nvcc, sm_90a, one process per source, all started
      together) and prints each kernel's registers, spills and build time
-     beside the wall time of the whole build;
+     beside the wall time of the whole build; for the selective scan at the
+     model's types, its dynamic shared memory, blocks an SM, and the SASS
+     of its inner loop: instructions, MUFU.EX2 (one a state update) and
+     SHFL;
   3. kernels: each kernel against its plain PyTorch version on the card,
      element by element within the limits stated below: flash attention at
      the reference test cases, ragged lengths and the gemma2-27b prefill
      shapes, and the mask probe (an input whose answer is exact) at the
      reference cases; the selective scan at the reference test cases in
-     f32 and bf16, the model's mixed types and ragged cases (its
-     falcon-mamba-7b prefill shape is checked in phase 5); before them, the
-     SASS of the flash-attention library must hold HGMMA (wgmma) ops;
+     f32 and bf16, the model's mixed types and ragged cases (N = 1, 4, 5;
+     di leaving part of a warp without channels; S = 1, S < chunk,
+     S = chunk + 1; rows and B/C slices aligned to 4 bytes or not at all;
+     its falcon-mamba-7b prefill shape is checked in phase 5); before them,
+     the SASS of the flash-attention library must hold HGMMA (wgmma) ops;
   4. serve, one cell after the other (``CELLS``), each through
      ``repro_torch.launch.serve.serve``: 4 prompts of 4600 tokens plus 32
      greedy tokens, random weights from seed 0. gemma2-27b at full width
@@ -63,6 +68,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -207,6 +213,59 @@ def pack_bound_ms(x, q, s) -> tuple[float, str, dict]:
     return times[worst] * 1e3, worst, detail
 
 
+def sass_function(sass: str, key: str) -> list[str]:
+    """The SASS instruction texts of the first function of a ``cuobjdump
+    -sass`` listing whose name holds ``key``, each prefixed by its hex
+    address and followed by the labels of the lines before it."""
+    out, inside, labels = [], False, []
+    for line in sass.splitlines():
+        if "Function :" in line:
+            if inside:
+                break
+            inside = key in line
+            continue
+        if not inside:
+            continue
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            labels.append(label.group(1))
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]+)\*/\s+([^;]*);", line)
+        if ins:
+            out.append((int(ins.group(1), 16), ins.group(2).strip(), labels))
+            labels = []
+    return out
+
+
+def sass_inner_loops(sass: str, key: str) -> list[dict]:
+    """The innermost loops (a backward branch's range holding no other) of
+    function ``key`` that hold MUFU.EX2, each with its instruction count and
+    its counts of MUFU.EX2 and SHFL, the loop with the most MUFU.EX2 first."""
+    ins = sass_function(sass, key)
+    where = {lab: addr for addr, _, labs in ins for lab in labs}
+    loops = []
+    for addr, text, _ in ins:
+        if "BRA" not in text.split():
+            continue
+        tgt = re.search(r"\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b", text)
+        if not tgt:
+            continue
+        target = where.get(tgt.group(1)) if tgt.group(1) else int(tgt.group(2), 16)
+        if target is not None and target <= addr:
+            loops.append((target, addr))
+    inner = [lp for lp in loops
+             if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+    rows = []
+    for lo, hi in inner:
+        body = [t for a, t, _ in ins if lo <= a <= hi]
+        mufu = sum("MUFU.EX2" in t for t in body)
+        if mufu:
+            rows.append({"instructions": len(body), "mufu_ex2": mufu,
+                         "shfl": sum("SHFL" in t for t in body),
+                         "per_state_update": len(body) / mufu})
+    return sorted(rows, key=lambda r: -r["mufu_ex2"])
+
+
 @contextlib.contextmanager
 def swapped(module, name: str, value):
     """Replace ``module.name`` by ``value`` inside the block."""
@@ -244,6 +303,7 @@ def main() -> None:
     from repro_torch.kernels.staging_pack import kernel as pack_kernel
     from repro_torch.kernels.staging_pack import ops as pack_ops
     from repro_torch.kernels.staging_pack import ref as pack_ref
+    from repro_torch.kernels.ssm_scan import kernel as scan_kernel
     from repro_torch.kernels.ssm_scan import ops as scan_ops
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
     from repro_torch.launch.serve import serve
@@ -281,6 +341,21 @@ def main() -> None:
         f"(wgmma; limit: at least 1)")
     if hgmma == 0:
         fail("the flash_attention library has no HGMMA instruction")
+    # the scan at the model's types (x, B, C bf16; dt f32; N = 16): shared
+    # memory, blocks an SM, and the SASS of its inner loop (the instance's
+    # template arguments <2, 4, 2, true> in the mangled name)
+    scan_sass = subprocess.run([str(cuobjdump), "-sass",
+                                str(build.library_path("ssm_scan"))],
+                               capture_output=True, text=True, timeout=300,
+                               check=True).stdout
+    scan_loops = sass_inner_loops(scan_sass, "ssm_scan_kernelILi2ELi4ELi2ELb1E")
+    scan_launch = scan_kernel.launch_shape(torch.bfloat16, torch.float32,
+                                           torch.bfloat16)
+    log(f"ssm_scan at the model's types: {scan_launch['smem_bytes']} B of dynamic "
+        f"shared memory a block, {scan_launch['blocks_per_sm']} blocks an SM "
+        f"(CUDA's occupancy calculator); chunk {scan_kernel.chunk_steps()} "
+        f"steps; SASS inner loops holding MUFU.EX2: {json.dumps(scan_loops)} "
+        f"(the first: its instructions over its MUFU.EX2, one a state update)")
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -421,12 +496,25 @@ def main() -> None:
     scan_cases = [(shape, (dtype,) * 3) for dtype in (torch.float32, torch.bfloat16)
                   for shape in ((2, 64, 256, 16), (1, 100, 300, 8),
                                 (2, 128, 512, 16))]   # tests/test_kernels.py
+    chunk = scan_kernel.chunk_steps()
     scan_cases += [((2, 200, 1000, 16), mixed),
                    ((3, 1, 77, 16), mixed),           # ragged: S = 1, di % 32 != 0
-                   ((1, 130, 100, 5), mixed)]         # ragged S, di and N
+                   ((1, 130, 100, 5), mixed),         # ragged S, di and N
+                   ((2, 50, 256, 1), mixed),          # N = 1: lanes 1..3 hold no state
+                   ((2, 50, 256, 4), mixed),          # N = 4: one state a lane
+                   ((1, 70, 36, 16), mixed),          # part of a warp without channels
+                   ((2, 40, 130, 16), (torch.bfloat16,) * 3),   # 4-byte rows
+                   ((2, 40, 77, 16), (torch.float32,) * 3),     # 4-byte rows
+                   ((2, chunk - 7, 200, 16), mixed),  # S < chunk
+                   ((2, chunk + 1, 200, 16), mixed)]  # S = chunk + 1
+    # B/C column slices of a (B, S, 3N) buffer (dt_rank = N = 5): a sequence
+    # stride of 30 B (bf16), the B slice not even 4-byte aligned
+    scan_cases = [(shape, types, 0) for shape, types in scan_cases]
+    scan_cases += [((1, 100, 128, 5), mixed, 5), ((1, 100, 128, 5), (torch.float32,) * 3, 5)]
     scan_worst = {}
-    for shape, types in scan_cases:
-        err, _ = compare_scan(scan_inputs(*shape, *types), f"B,S,di,N={shape}")
+    for shape, types, dt_rank in scan_cases:   # h0 random, nonzero
+        err, _ = compare_scan(scan_inputs(*shape, *types, dt_rank=dt_rank),
+                              f"B,S,di,N={shape} dt_rank={dt_rank}")
         dname = str(types[0]).split(".")[-1]
         scan_worst[dname] = max(scan_worst.get(dname, 0.0), err)
 

@@ -28,7 +28,29 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_int64)]
                        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.repro_ssm_scan_chunk_steps.argtypes = []
+        lib.repro_ssm_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.repro_ssm_scan_blocks_per_sm.argtypes = [ctypes.c_int] * 4
+        for f in (lib.repro_ssm_scan_chunk_steps, lib.repro_ssm_scan_smem_bytes,
+                  lib.repro_ssm_scan_blocks_per_sm):
+            f.restype = ctypes.c_int
     return lib
+
+
+def chunk_steps() -> int:
+    """Time steps the kernel stages in shared memory at once (a chunk)."""
+    return _library().repro_ssm_scan_chunk_steps()
+
+
+def launch_shape(x_dtype: torch.dtype, dt_dtype: torch.dtype,
+                 bc_dtype: torch.dtype, full: bool = True) -> dict:
+    """The kernel's dynamic shared memory a block (bytes) and the blocks an
+    SM holds at once (CUDA's occupancy calculator) for these input dtypes,
+    with N == 16 (``full``) or less."""
+    lib = _library()
+    flags = (_BF16[x_dtype], _BF16[dt_dtype], _BF16[bc_dtype])
+    return {"smem_bytes": lib.repro_ssm_scan_smem_bytes(*flags),
+            "blocks_per_sm": lib.repro_ssm_scan_blocks_per_sm(*flags, int(full))}
 
 
 def check_inputs(xi: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,

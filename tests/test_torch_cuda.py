@@ -96,16 +96,29 @@ def test_kernel_mask_probe_is_exact_in_bf16(cuda_device, case):
     assert bool((err <= lim).all()), float((err / lim).max())
 
 
+SCAN_CHUNK = 32   # time steps the scan kernel stages at once
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("types", [
     ("float32",) * 3, ("bfloat16",) * 3, ("bfloat16", "float32", "bfloat16")],
     ids=["f32", "bf16", "mixed"])
+@pytest.mark.parametrize("h0_scale", [1.0, 0.0], ids=["h0", "h0_zero"])
 @pytest.mark.parametrize("shape", [
     (2, 64, 256, 16), (1, 100, 300, 8), (2, 128, 512, 16), (3, 1, 77, 16),
-    (1, 130, 100, 5)])
-def test_scan_kernel_matches_plain(cuda_device, types, shape):
+    (1, 130, 100, 5),
+    (2, 50, 256, 1), (2, 50, 256, 4),         # N = 1 and 4: lanes without states
+    (1, 70, 36, 16), (2, 40, 130, 16),        # di leaves part of a warp without channels
+    (2, SCAN_CHUNK - 7, 200, 16),             # S < chunk
+    (2, SCAN_CHUNK + 1, 200, 16),             # S = chunk + 1
+    (2, 40, 77, 16),                          # rows 4-byte aligned only (f32)
+    (1, 100, 128, 5)])   # B/C sequence stride 30 B in bf16, neither slice 4-byte aligned
+def test_scan_kernel_matches_plain(cuda_device, types, shape, h0_scale):
+    """Bm and Cm are the column slices [N:2N] and [2N:3N] of one (B, S, 3N)
+    buffer; h0 is random (nonzero) or zero."""
     from repro_torch.kernels import LAUNCHES
-    from repro_torch.kernels.ssm_scan import ops, ref
+    from repro_torch.kernels.ssm_scan import kernel, ops, ref
+    assert kernel.chunk_steps() == SCAN_CHUNK   # the S cases bracket a chunk
     B, S, di, N = shape
     x_dt, dt_dt, bc_dt = (getattr(torch, t) for t in types)
     g = torch.Generator(device=cuda_device).manual_seed(1)
@@ -119,7 +132,7 @@ def test_scan_kernel_matches_plain(cuda_device, types, shape):
     bc = rn(B, S, 3 * N).to(bc_dt)
     Bm, Cm = bc[..., N:2 * N], bc[..., 2 * N:]
     A = -torch.exp(rn(di, N) * 0.2)
-    h0 = rn(B, di, N)
+    h0 = rn(B, di, N) * h0_scale
     before = LAUNCHES["ssm_scan"]
     y, h = ops.selective_scan(xi, dt, Bm, Cm, A, h0)
     torch.cuda.synchronize()

@@ -168,3 +168,49 @@ def test_state_sum_halves_in_a_fixed_order_that_zero_padding_keeps(n):
         if wider >= n:
             padded = torch.nn.functional.pad(q, (0, wider - n))
             assert torch.equal(ref.sum_state(padded), got)
+
+
+def _lanes(q: torch.Tensor, strided: bool) -> list[list[torch.Tensor]]:
+    """The four lanes' states of each channel as the CUDA kernel holds them,
+    the state axis padded with zeros to 16: lane j holds states j, j+4, j+8,
+    j+12 (``strided``), or 4j .. 4j+3."""
+    q16 = torch.nn.functional.pad(q, (0, 16 - q.shape[-1]))
+    if strided:
+        return [[q16[..., j + 4 * k] for k in range(4)] for j in range(4)]
+    return [[q16[..., 4 * j + k] for k in range(4)] for j in range(4)]
+
+
+def _kernel_sum(q: torch.Tensor, strided: bool = True) -> torch.Tensor:
+    """The kernel's state sum, one f32 rounding per add: in the lane
+    (q[0] + q[2]) + (q[1] + q[3]) over its four registers, then a shuffle
+    with lane j^2 and one with lane j^1. Every lane must end equal."""
+    r = [(v[0] + v[2]) + (v[1] + v[3]) for v in _lanes(q, strided)]
+    r = [r[j] + r[j ^ 2] for j in range(4)]
+    r = [r[j] + r[j ^ 1] for j in range(4)]
+    for j in range(1, 4):
+        assert torch.equal(r[j].view(torch.int32), r[0].view(torch.int32))
+    return r[0]
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 8, 16])
+def test_four_strided_lanes_sum_the_state_with_the_plain_bits(n):
+    """Lane j of a channel holds states j, j+4, j+8, j+12: its two in-lane
+    levels are the plain version's levels 8 and 4, the two shuffles its
+    levels 2 and 1, so y keeps ``ref.sum_state``'s bits (compared as int32,
+    so even the sign of a zero counts)."""
+    q = torch.from_numpy(np.random.default_rng(100 + n).standard_normal((64, 9, n))
+                         .astype(np.float32) * 1e3)
+    got = _kernel_sum(q)
+    assert torch.equal(got.view(torch.int32), ref.sum_state(q).view(torch.int32))
+
+
+def test_contiguous_lanes_would_change_the_bits():
+    """The same code with states 4j .. 4j+3 in lane j adds in another order:
+    on seeded inputs some sums differ from the plain version's, which the
+    bit-equal check on the card would catch."""
+    q = torch.from_numpy(np.random.default_rng(7).standard_normal((64, 9, 16))
+                         .astype(np.float32) * 1e3)
+    got = _kernel_sum(q, strided=False)
+    differ = got.view(torch.int32) != ref.sum_state(q).view(torch.int32)
+    assert bool(differ.any())
+    assert bool((got - ref.sum_state(q)).abs().max() > 0)

@@ -252,3 +252,90 @@ def test_codec_encodes_cpu_tensors_as_the_reference_device_path(dtype, n):
         back = RefCodec().decode(got, meta).view(dtype)
         ours = Int8BlockCodec().decode(want, want_meta).view(dtype)
         assert back.tobytes() == ours.tobytes()
+
+
+TINY = np.finfo(np.float32).tiny
+
+
+def _lifted_quantize(blocks: np.ndarray, scales: np.ndarray) -> np.ndarray:
+    """The CUDA kernel's per-element quantize (``staging_pack.cu``,
+    ``quantize``) in numpy f32: 0 where |x| * 4 < scale; otherwise x and the
+    scale, both lifted by 2^64 where the scale is below 2^-60, divided in
+    IEEE f32, rounded half to even and clipped. Asserts that every division
+    it makes has normal operands, the point of the lift."""
+    x = blocks.astype(np.float32)
+    s = scales.astype(np.float32)[:, None]
+    lift = np.where(s < np.float32(2.0 ** -60), np.float32(2.0 ** 64), np.float32(1.0))
+    zero = np.abs(x) * np.float32(4) < s
+    num, den = x * lift, np.broadcast_to(s * lift, x.shape)
+    assert (np.abs(num[~zero]) >= TINY).all() and (den[~zero] >= TINY).all()
+    assert (np.abs(num[~zero] / den[~zero]) >= 0.25).all()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        q = np.rint(num / den)
+    q = np.where(zero, np.float32(0), q)
+    return np.clip(q, -127, 127).astype(np.int8)
+
+
+def _blocks_mixing_subnormals() -> np.ndarray:
+    """Six codec blocks: normal values with subnormal ones among them and
+    exact ties at scale 1; subnormal values only (a subnormal scale); exact
+    ties at the subnormal scale 2^-140; an underflowing amax/127 (scale 1);
+    a scale just below and one just above 2^-60; normal values."""
+    r = np.random.default_rng(11)
+    E = 4096
+    x = np.zeros(6 * E, np.float32)
+    b = [x[i * E:(i + 1) * E] for i in range(6)]
+    b[0][:] = np.clip(r.standard_normal(E) * 30, -126, 126)
+    b[0][::7] = (r.standard_normal(b[0][::7].size) * 1e-39).astype(np.float32)
+    b[0][:8] = [70.5, -70.5, 0.5, 1.5, 2.5, -2.5, 126.5, 127.0]
+    b[1][:] = (r.standard_normal(E) * 1e-38).astype(np.float32)
+    t = np.float32(2.0 ** -140)
+    b[2][:] = r.standard_normal(E).astype(np.float32) * 2 ** -143
+    b[2][:5] = np.float32([127, 70.5, -70.5, 2.5, 0.5]) * t
+    b[3][:3] = np.float32([4e-44, -7e-45, 1.4e-45])
+    b[4][:] = r.standard_normal(E).astype(np.float32) * np.float32(2.0 ** -64)
+    b[4][0] = np.float32(127 * 2.0 ** -61)
+    b[5][:] = r.standard_normal(E).astype(np.float32) * np.float32(2.0 ** -62)
+    b[5][0] = np.float32(127 * 2.0 ** -59)
+    return x
+
+
+def _codec_reference(x: np.ndarray):
+    nb = -(-x.size // 4096)
+    xp = np.pad(x, (0, nb * 4096 - x.size)).reshape(nb * 32, 128)
+    q, s = ref.pack_blocks_ref(torch.from_numpy(xp), tile=(32, 128),
+                               out_dtype=torch.int8)
+    return xp.reshape(nb, 4096), q.numpy(), s.numpy()
+
+
+@pytest.mark.parametrize("data", ["subnormal_blocks", "seismic_tails", "normal"])
+def test_lifted_division_keeps_the_plain_bytes(data):
+    """The kernel's division on normal operands gives the plain version's
+    int8 bytes and the host codec's, on blocks that mix subnormal values, a
+    subnormal scale, exact ties (x / scale = k + 1/2, at scale 1 and at the
+    subnormal scale 2^-140) and an underflowing scale; on the seismic
+    field's far tails (subnormal, at step 7 of a small mesh); and on normal
+    values."""
+    if data == "subnormal_blocks":
+        x = _blocks_mixing_subnormals()
+    elif data == "seismic_tails":
+        from repro_torch.data.seismic import SeismicConfig, SeismicField
+        x = SeismicField(SeismicConfig(nx=41, ny=101, nz=101), device="cpu") \
+            .step(7).float().numpy().reshape(-1)
+        sub = (x != 0) & (np.abs(x) < TINY)
+        assert sub.mean() > 0.01
+    else:
+        x = _normal(5 * 4096 + 77, seed=12, scale=3.0)
+    blocks, q_plain, s_plain = _codec_reference(x)
+    if data == "subnormal_blocks":
+        assert (s_plain[[1, 2]] < TINY).all() and s_plain[3] == 1.0
+        assert s_plain[2] == np.float32(2.0 ** -140)
+        assert s_plain[4] == np.float32(2.0 ** -61) and s_plain[5] == np.float32(2.0 ** -59)
+        assert q_plain[0, :7].tolist() == [70, -70, 0, 2, 2, -2, 126]
+        assert q_plain[2, :5].tolist() == [127, 70, -70, 2, 0]
+    if data == "seismic_tails":
+        assert (s_plain < TINY).any()
+    got = _lifted_quantize(blocks, s_plain)
+    assert got.tobytes() == q_plain.tobytes()
+    payload, _ = RefCodec().encode(x)
+    assert payload[s_plain.size * 4:] == got.reshape(-1)[:x.size].tobytes()
