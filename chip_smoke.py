@@ -55,9 +55,40 @@ Phases, each of which makes the script exit non-zero when it fails:
      the host codec's decode (int8-block) or to its bits (none); then the
      pack kernel is timed at that mesh.
 
+  8. train: (a) gemma2-27b at published widths with its depth cut to 2
+     layers (``TRAIN``), ``remat="full"``, bf16 compute on f32 params, 4
+     steps of AdamW at global batch 2 x 4600 tokens in 2 microbatches,
+     ``egress="grads_int8"``, each step's diagnostics, int8 gradient blocks
+     and scales staged through the port's sink, staging and SAVIME. Before
+     the run, step 1's loss and gradients (step 0's LR is 0, so step 1 sees
+     the initial params) are computed once through the kernel and once
+     through the plain attention (autograd through the whole plain
+     version), and held to the gates below. The run's launches, finite
+     losses and SAVIME's read-back are checked; the step time, peak memory,
+     the flash kernel's time, the plain attention backward's time and the
+     AdamW update's time (CUDA events) are printed. (b) recovery: the
+     example ``examples/torch_train_with_intransit.py`` on the card at the
+     gemma2-27b smoke config with its own settings (200 steps, one failure
+     injected at step 100), in this process, with its launches counted.
+
 The pack kernel is checked in phase 3 too, byte for byte against its plain
 version (reference cases, the codec's ragged sizes, exact ties, the full
 mesh) and against the numpy host codec at the full mesh and for float16.
+
+Phase 8's gates, set before its first run on the card:
+- launches: the flash kernel exactly 2 layers x 2 microbatches x 2 (forward
+  and remat recompute; the backward recomputes through the plain version
+  and launches none) = 8 a step; the pack kernel exactly 1 a step;
+- step 1 against the plain attention path: |loss - loss_plain| <=
+  1e-3 |loss_plain|; grad_norm within 1e-2 relative; every leaf's gradient
+  within 1e-2 relative (Frobenius) of the plain path's, a missing gradient
+  reading 1.0;
+- loss and grad_norm finite at every step;
+- SAVIME's read-back: each step's diag equals the loss and grad_norm the
+  step returned, and its grad_blocks and scales equal what the kernel
+  wrote, bit for bit;
+- recovery: loss falls, one restart, SAVIME holds 200 step diagnostics,
+  the flash kernel launched 3 layers x 200 steps and the pack kernel 200.
 
 The last lines are a JSON summary of the kernels, the card line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -67,8 +98,10 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import json
 import re
+import runpy
 import subprocess
 import sys
 import threading
@@ -118,6 +151,20 @@ SERVE_MAMBA = dict(arch="falcon-mamba-7b", batch=4, prompt_len=4600,
                    new_tokens=32, n_layers=64, seed=0, kernel="ssm_scan",
                    reduced="none: full depth, 64 layers (stacked scan layout)")
 CELLS = (SERVE, SERVE_MAMBA)
+# the training cell: gemma2-27b at published widths, two layers (one
+# local/global period, both masks bind), 4 steps
+TRAIN = dict(arch="gemma2-27b", n_layers=2, global_batch=2, seq_len=4600,
+             microbatches=2, steps=4, seed=0, peak_lr=3e-4, warmup_steps=1,
+             egress_blocks=64,
+             reduced="n_layers 46 -> 2 (one local/global period, rem layout): "
+                     "f32 params, grads and two AdamW moments take 16 B a "
+                     "parameter, 37.0 GB at 2 layers (2,312,151,552 params) and "
+                     "55.1 GB at 4, before activations and the plain attention "
+                     "backward")
+TRAIN_LOSS_REL = 1e-3      # |loss - loss_plain| / |loss_plain|
+TRAIN_GNORM_REL = 1e-2     # grad_norm, relative
+TRAIN_GRAD_REL = 1e-2      # every leaf's gradient, relative Frobenius
+RECOVERY_STEPS = 200       # the example's own settings
 # the in-transit path: the paper's HPC4e velocity mesh (SeismicField's
 # docstring), staged as float32, 8 steps a codec; the int8-block codec's block
 # and the staging_pack tile it packs with
@@ -264,6 +311,15 @@ def sass_inner_loops(sass: str, key: str) -> list[dict]:
                          "shfl": sum("SHFL" in t for t in body),
                          "per_state_update": len(body) / mufu})
     return sorted(rows, key=lambda r: -r["mufu_ex2"])
+
+
+def _paths(tree, path=()):
+    """(path, leaf) of a nested dict/list tree in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree) for pl in _paths(tree[k], path + (k,))]
+    if isinstance(tree, list):
+        return [pl for i, t in enumerate(tree) for pl in _paths(t, path + (i,))]
+    return [(path, tree)]
 
 
 @contextlib.contextmanager
@@ -1132,12 +1188,231 @@ def main() -> None:
         f"{retile_ms:.4f} ms, permute().reshape().clone() {retile_library_ms:.4f} ms")
     del x, xp, q_out, s_out, field0
 
+    # -- 8. train ------------------------------------------------------------------
+    from repro_torch.data import DataConfig, SyntheticLM, batch_to_device
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.train import stage_egress
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim.optimizer import global_norm
+    from repro_torch.train import TrainConfig, TrainSetup
+    from repro_torch.train import train_step as train_step_mod
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    class EventTimes:
+        """CUDA events around every call of ``module.name`` inside the block;
+        ``ms()`` is their summed device time since the last ``reset()``."""
+
+        def __init__(self, module, name: str):
+            self.module, self.name, self.pairs = module, name, []
+
+        def reset(self) -> None:
+            self.pairs = []
+
+        def ms(self) -> float:
+            torch.cuda.synchronize()
+            return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+        @contextlib.contextmanager
+        def attached(self):
+            inner = getattr(self.module, self.name)
+
+            def timed(*a, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = inner(*a, **kw)
+                end.record()
+                self.pairs.append((start, end))
+                return out
+
+            with swapped(self.module, self.name, timed):
+                yield
+
+    tcfg = dataclasses.replace(cell_config(TRAIN), remat="full")
+    if tcfg.compute_dtype != "bfloat16" or tcfg.param_dtype != "float32":
+        fail(f"train cell dtypes {tcfg.compute_dtype}/{tcfg.param_dtype}")
+    tsetup = TrainSetup(Model(tcfg), TrainConfig(
+        peak_lr=TRAIN["peak_lr"], warmup_steps=TRAIN["warmup_steps"],
+        total_steps=TRAIN["steps"], egress="grads_int8",
+        egress_blocks=TRAIN["egress_blocks"], microbatches=TRAIN["microbatches"]))
+    log(f"train: {tcfg.name} at published widths ({json.dumps(dataclasses.asdict(tcfg))}); "
+        f"{tcfg.param_count()} params; reduced: {TRAIN['reduced']}")
+    data = SyntheticLM(DataConfig(vocab_size=tcfg.vocab_size, seq_len=TRAIN["seq_len"],
+                                  global_batch=TRAIN["global_batch"], seed=TRAIN["seed"])
+                       ).batches()
+    tbatches = [batch_to_device(next(data), dev) for _ in range(TRAIN["steps"])]
+    torch.cuda.reset_peak_memory_stats()
+    tstate = tsetup.init_state(TRAIN["seed"], dev)
+    want_step = {"flash_attention": tcfg.n_layers * TRAIN["microbatches"] * 2,
+                 "ssm_scan": 0, "staging_pack": 1}
+
+    # step 1 against the plain attention path. Step 0's LR is 0, so step 1
+    # computes its gradients at the initial params: both runs take them here
+    t0 = time.perf_counter()
+    reset_launches()
+    loss_k, _, grads_k = tsetup.loss_and_grads(tstate["params"], tbatches[1])
+    grads_k = [g.cpu() for g in tree_leaves(grads_k)]
+    kernel_launches = dict(LAUNCHES)
+    reset_launches()
+    with swapped(attention_mod, "gqa_attention", ops.gqa_attention_ref):
+        loss_p, _, grads_p = tsetup.loss_and_grads(tstate["params"], tbatches[1])
+    plain_launches = dict(LAUNCHES)
+    if kernel_launches["flash_attention"] != want_step["flash_attention"] or \
+            plain_launches["flash_attention"] != 0:
+        fail(f"step-1 comparison launched {kernel_launches} (kernel) and "
+             f"{plain_launches} (plain)")
+    gnorm_p = float(global_norm(grads_p))
+    names = [".".join(str(p) for p in path) for path, _ in
+             _paths(tsetup.state_specs()["params"])]
+    grad_rel = {}
+    for name, gk, gp in zip(names, grads_k, tree_leaves(grads_p)):
+        gp32 = gp.float()
+        grad_rel[name] = float((gk.to(dev).float() - gp32).norm() / gp32.norm())
+    loss_plain = float(loss_p)
+    del grads_p, grads_k
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst_leaf = max(grad_rel, key=grad_rel.get)
+    attn_rel = {k: v for k, v in grad_rel.items() if ".attn." in k}
+    log(f"train step 1, kernel vs plain attention path ({time.perf_counter() - t0:.1f} s): "
+        f"loss {float(loss_k)!r} vs {loss_plain!r}; per-leaf gradient relative "
+        f"(Frobenius) error: worst {worst_leaf} {grad_rel[worst_leaf]:.3g} (limit "
+        f"{TRAIN_GRAD_REL}); attention projections {json.dumps(attn_rel)}")
+    if not all(v <= TRAIN_GRAD_REL for v in grad_rel.values()):
+        fail(f"a gradient of step 1 differs from the plain path's: {grad_rel}")
+
+    # the run: 4 steps, each one's egress staged through sink, staging, SAVIME
+    flash_t = EventTimes(fa_kernel, "flash_attention")
+    vjp_t = EventTimes(attn_ref, "attention_ref_vjp")
+    adamw_t = EventTimes(train_step_mod, "adamw_update")
+    savime = SavimeServer().start()
+    staging = StagingServer(savime.addr, mem_capacity=mem_capacity,
+                            disk_dir=str(disk_dir), send_threads=2).start()
+    train_rows, staged = [], []
+    try:
+        sink = InTransitSink(staging.addr, InTransitConfig(
+            io_threads=2, tar_prefix="train", codec="none"))
+        try:
+            step_fn = tsetup.step_fn()
+            torch.cuda.synchronize()
+            reset_launches()
+            with flash_t.attached(), vjp_t.attached(), adamw_t.attached():
+                for i, batch in enumerate(tbatches):
+                    for tm_ in (flash_t, vjp_t, adamw_t):
+                        tm_.reset()
+                    before = dict(LAUNCHES)
+                    t_step = time.perf_counter()
+                    tstate, metrics, egress = step_fn(tstate, batch)
+                    torch.cuda.synchronize()
+                    step_ms = (time.perf_counter() - t_step) * 1e3
+                    staged.append(stage_egress(sink, egress, int(tstate["step"])))
+                    row = dict(step=i, step_ms=step_ms, loss=float(metrics["loss"]),
+                               grad_norm=float(metrics["grad_norm"]),
+                               lr=float(metrics["lr"]), flash_ms=flash_t.ms(),
+                               plain_backward_ms=vjp_t.ms(), adamw_ms=adamw_t.ms(),
+                               launches={k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+                    train_rows.append(row)
+                    log(f"train step {i}: {json.dumps(row)}")
+            train_launches = dict(LAUNCHES)
+            train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            sink.flush(timeout=600)
+        finally:
+            sink.close()
+        with AnalysisSession(savime.addr) as an:
+            back = {name: an.execute(tar(f"train_{name}").attr("v").select()).array
+                    for name in ("diag", "grad_blocks", "grad_scales")}
+    finally:
+        staging.stop()
+        savime.stop()
+    n_steps = TRAIN["steps"]
+    want_run = {k: v * n_steps for k, v in want_step.items()}
+    if train_launches != want_run or any(r["launches"] != want_step for r in train_rows):
+        fail(f"train run launched {train_launches} "
+             f"({[r['launches'] for r in train_rows]} a step), want {want_step} a step")
+    if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in train_rows):
+        fail(f"a train step's loss or grad_norm is not finite: {train_rows}")
+    step1 = train_rows[1]
+    loss_err = abs(step1["loss"] - loss_plain) / abs(loss_plain)
+    gnorm_err = abs(step1["grad_norm"] - gnorm_p) / gnorm_p
+    log(f"train step 1 against the plain path: loss {step1['loss']!r} vs {loss_plain!r} "
+        f"(relative {loss_err:.3g}, limit {TRAIN_LOSS_REL}); grad_norm "
+        f"{step1['grad_norm']!r} vs {gnorm_p!r} (relative {gnorm_err:.3g}, limit "
+        f"{TRAIN_GNORM_REL}); lr {step1['lr']}")
+    if not (loss_err <= TRAIN_LOSS_REL and gnorm_err <= TRAIN_GNORM_REL):
+        fail("step 1's loss or grad_norm differs from the plain path's")
+    if step1["lr"] <= 0 or train_rows[0]["lr"] != 0.0:
+        fail(f"lr {[r['lr'] for r in train_rows]}: step 0 must be 0, step 1 > 0")
+    readback_equal = all(
+        back[name].shape[0] == n_steps and all(
+            back[name][i].tobytes() == staged[i][name].tobytes() for i in range(n_steps))
+        for name in ("diag", "grad_blocks", "grad_scales"))
+    diag_is_step = all(
+        staged[i]["diag"].tobytes() == np.float32([r["loss"], r["grad_norm"]]).tobytes()
+        for i, r in enumerate(train_rows))
+    log(f"train: SAVIME holds {back['diag'].shape[0]} steps of diag {back['diag'].shape}, "
+        f"grad_blocks {back['grad_blocks'].shape} {back['grad_blocks'].dtype}, scales "
+        f"{back['grad_scales'].shape}; read back equal to what each step staged: "
+        f"{readback_equal}; each diag equal to the step's loss and grad_norm: {diag_is_step}")
+    if not (readback_equal and diag_is_step):
+        fail("SAVIME's train read-back differs from what the steps returned")
+    warm = train_rows[1:]
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    train_stats = {
+        "config": f"{tcfg.name} n_layers={tcfg.n_layers} remat={tcfg.remat}",
+        "reduced": TRAIN["reduced"],
+        "steps": train_rows,
+        "warm_step_ms": float(np.median([r["step_ms"] for r in warm])),
+        "tokens_per_step": tokens,
+        "peak_mem_gb": train_peak_gb,
+        "flash_ms_per_step": float(np.median([r["flash_ms"] for r in warm])),
+        "plain_backward_ms_per_step": float(np.median([r["plain_backward_ms"] for r in warm])),
+        "adamw_ms_per_step": float(np.median([r["adamw_ms"] for r in warm])),
+        "step1_loss_rel_err": loss_err, "step1_grad_norm_rel_err": gnorm_err,
+        "step1_grad_rel_err_max": grad_rel[worst_leaf], "step1_grad_rel_err": grad_rel,
+    }
+    train_stats["tokens_per_s"] = tokens / (train_stats["warm_step_ms"] / 1e3)
+    log(f"train (warm, median of steps 2-4): {json.dumps({k: v for k, v in train_stats.items() if k not in ('steps', 'step1_grad_rel_err')})}")
+    del tstate, tbatches, metrics, egress
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8b. recovery: the example twin on the card, in this process
+    example = ROOT / "examples" / "torch_train_with_intransit.py"
+    argv = sys.argv
+    sys.argv = [str(example), "--device", "cuda", "--steps", str(RECOVERY_STEPS)]
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        ex = runpy.run_path(str(example), run_name="__main__")
+        recovery_s = time.perf_counter() - t0
+        recovery_launches = dict(LAUNCHES)
+    finally:
+        sys.argv = argv
+    n_layers_smoke = ex["cfg"].n_layers
+    want_rec = {"flash_attention": n_layers_smoke * RECOVERY_STEPS, "ssm_scan": 0,
+                "staging_pack": RECOVERY_STEPS}
+    rec = {"steps": RECOVERY_STEPS, "seconds": recovery_s,
+           "restarts": ex["sup"].restarts, "loss_first": ex["losses"][0],
+           "loss_last": ex["losses"][-1], "savime_diag_rows": int(ex["diag"].shape[0]),
+           "launches": recovery_launches}
+    log(f"train recovery (examples/torch_train_with_intransit.py on {kind}): {json.dumps(rec)}")
+    if not (rec["restarts"] == 1 and rec["loss_last"] < rec["loss_first"]
+            and rec["savime_diag_rows"] == RECOVERY_STEPS and recovery_launches == want_rec):
+        fail(f"the recovery run: {rec}, want launches {want_rec}")
+    train_stats["recovery"] = rec
+    log(f"train done at {time.perf_counter() - t_start:.1f} s")
+
     summary = {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
         "launches": fa_launches["flash_attention"],
+        "launches_train": train_launches["flash_attention"],
+        "launches_recovery": recovery_launches["flash_attention"],
         "shape": (f"B={Bs} S={S} Hq={g['Hq']} Hkv={g['Hkv']} D={g['D']} bf16 "
                   f"causal window=0 cap={g['cap']} (serve global layer)"),
         "max_abs_err": worst["serve_shape"],
@@ -1163,6 +1438,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:51",
         "launches": scan_launches["ssm_scan"],
+        "launches_train": train_launches["ssm_scan"],
         "shape": (f"B={ss['B']} S={ss['S']} di={ss['di']} N={ss['N']} xi/B/C "
                   f"bf16, dt/A/h0 f32 (every falcon-mamba-7b layer's prefill)"),
         "max_abs_err": scan_err,
@@ -1181,6 +1457,8 @@ def main() -> None:
         "source": "src/repro_torch/kernels/staging_pack/csrc/staging_pack.cu",
         "replaces": "src/repro/kernels/staging_pack/kernel.py:37",
         "launches": intransit_stats["int8-block"]["launches"],
+        "launches_train": train_launches["staging_pack"],
+        "launches_recovery": recovery_launches["staging_pack"],
         "shape": (f"{mesh_n} f32 values ({MESH['nx']}x{MESH['ny']}x{MESH['nz']} mesh) "
                   f"as ({nb_mesh * PACK_TILE[0]}, {PACK_TILE[1]}), tile {PACK_TILE}, "
                   f"int8 out (every in-transit step with codec int8-block)"),
@@ -1198,7 +1476,7 @@ def main() -> None:
         "library_call_retile": "x.view(ni,TR,nj,TC).permute(0,2,1,3).reshape(ni*nj,-1).clone()",
         "ms_normal_values": pack_normal_ms,
         "subnormal_share": subnormal_share,
-    }], "serve": serve_stats, "intransit": intransit_stats}
+    }], "serve": serve_stats, "intransit": intransit_stats, "train": train_stats}
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary), flush=True)
     print(card, flush=True)

@@ -2,8 +2,9 @@
 (``repro/configs/base.py``) that the ported kinds read, as a plain frozen
 dataclass.
 
-Only the fields the dense/local/global attention and mamba paths read are
-kept; the MoE, RG-LRU, prefix-LM and sharding fields belong to later slices.
+Only the fields the dense/local/global attention and mamba paths and the
+single-device training path read are kept; the MoE, RG-LRU, prefix-LM and
+sharding fields belong to later slices.
 """
 from __future__ import annotations
 
@@ -56,6 +57,7 @@ class ArchConfig:
 
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    remat: str = "full"           # none | full | dots | comm (block remat)
     scan_layers: bool = True
 
     def __post_init__(self):
@@ -118,4 +120,5 @@ class ArchConfig:
             vocab_size=256,
             attn_window=min(self.attn_window, 32) if self.attn_window else 0,
             ssm=ssm,
+            remat="none",
         )

@@ -1,3 +1,5 @@
-"""Producers of the port's in-transit data: the seismic wavefield (the
-paper's §4 dataset class), made on the card."""
+"""Producers of the port's data: the seismic wavefield (the paper's §4
+dataset class), made on the card, and the synthetic LM corpus training
+reads."""
+from repro_torch.data.pipeline import DataConfig, SyntheticLM, batch_to_device  # noqa: F401
 from repro_torch.data.seismic import SeismicConfig, SeismicField  # noqa: F401

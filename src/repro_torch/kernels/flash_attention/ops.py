@@ -4,6 +4,14 @@
 A CUDA tensor goes to the hand-written kernel and a CPU tensor to the plain
 version; nothing else chooses between them, and a failed build or launch
 raises.
+
+On the card the kernel runs inside an ``autograd.Function``. Its forward is
+the kernel; its backward recomputes through the plain version and
+differentiates that, one chunk of rows at a time
+(``ref.attention_ref_vjp``). This is what the reference trains with: it has
+no backward kernel and differentiates ``flash_attention_xla`` under
+``jax.checkpoint`` ("flash backward = recompute"). The forward never gives
+way to the plain version.
 """
 from __future__ import annotations
 
@@ -32,8 +40,29 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return gqa_attention_ref(q, k, v, scale=scale, softcap=softcap,
                                  causal=causal, window=window)
-    return kernel.flash_attention(q, k, v, scale=scale, softcap=softcap,
-                                  causal=causal, window=window)
+    return FlashAttention.apply(q, k, v, scale, softcap, causal, window)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel forward, the plain version's recomputed gradient backward.
+    Saves q, k and v, not the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, softcap, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(scale=scale, softcap=softcap, causal=causal,
+                        window=window)
+        return kernel.flash_attention(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        B = q.shape[0]
+        dq, dk, dv = ref.attention_ref_vjp(
+            _to_bh(q), _to_bh(k), _to_bh(v), _to_bh(do),
+            groups=q.shape[2] // k.shape[2], **ctx.opts)
+        return (_from_bh(dq, B), _from_bh(dk, B), _from_bh(dv, B),
+                None, None, None, None)
 
 
 def gqa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,7 +1,8 @@
 """Plain PyTorch version of the flash-attention kernel: dense softmax
 attention with fp32 scores, the port of ``repro/kernels/flash_attention/ref.py``;
-the per-element limit the CUDA kernel is held to against it; and the mask
-probe, an input whose answer is exact.
+its gradient, recomputed one chunk of rows at a time (the backward of the
+kernel's ``autograd.Function``); the per-element limit the CUDA kernel is
+held to against it; and the mask probe, an input whose answer is exact.
 """
 from __future__ import annotations
 
@@ -19,6 +20,36 @@ BF16_ROUNDING = 2.0 ** -8
 _MAX_SCORE_ELEMS = 1 << 28
 
 
+def _mask(Sq: int, Sk: int, causal: bool, window: int,
+          device: torch.device) -> torch.Tensor:
+    qp = torch.arange(Sq, device=device)[:, None]
+    kp = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= (qp - kp) < window
+    return mask
+
+
+def _row_chunk(Sq: int, Sk: int) -> int:
+    return max(1, _MAX_SCORE_ELEMS // max(Sq * Sk, 1))
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            mask: torch.Tensor, scale: float, softcap: float) -> torch.Tensor:
+    """Dense attention of matching rows (one kv row per q row), in f32."""
+    s = (q.float() @ k.float().transpose(1, 2)) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(mask, s, NEG_INF)
+    # the shift cancels in the softmax, so no gradient flows through it (the
+    # reference's stop_gradient); differentiating it only adds rounding
+    p = torch.exp(s - s.amax(-1, keepdim=True).detach())
+    p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return p @ v.float()
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   groups: int = 1, scale: float = 1.0, softcap: float = 0.0,
                   causal: bool = True, window: int = 0) -> torch.Tensor:
@@ -27,27 +58,47 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     is floored at 1e-30. Returns (BHq, Sq, D) in q's dtype."""
     BH, Sq, _ = q.shape
     Sk = k.shape[1]
-    qp = torch.arange(Sq, device=q.device)[:, None]
-    kp = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kp <= qp
-    if window:
-        mask &= (qp - kp) < window
+    mask = _mask(Sq, Sk, causal, window, q.device)
     out = torch.empty_like(q)
-    rows = max(1, _MAX_SCORE_ELEMS // max(Sq * Sk, 1))
+    rows = _row_chunk(Sq, Sk)
     for r0 in range(0, BH, rows):
         r1 = min(r0 + rows, BH)
         kv_rows = torch.arange(r0, r1, device=q.device) // groups
-        kf, vf = k[kv_rows].float(), v[kv_rows].float()
-        s = (q[r0:r1].float() @ kf.transpose(1, 2)) * scale
-        if softcap:
-            s = torch.tanh(s / softcap) * softcap
-        s = torch.where(mask, s, NEG_INF)
-        p = torch.exp(s - s.amax(-1, keepdim=True))
-        p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
-        out[r0:r1] = (p @ vf).to(q.dtype)
+        out[r0:r1] = _attend(q[r0:r1], k[kv_rows], v[kv_rows], mask, scale,
+                             softcap).to(q.dtype)
     return out
+
+
+def attention_ref_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, *, groups: int = 1, scale: float = 1.0,
+                      softcap: float = 0.0, causal: bool = True,
+                      window: int = 0):
+    """The gradients (dq, dk, dv) of ``attention_ref`` at (q, k, v) against
+    the output gradient ``do``, each in its input's dtype: the plain version
+    recomputed and differentiated one chunk of rows at a time, so that only
+    one chunk's scores and probabilities are alive at once (differentiating
+    ``attention_ref`` whole keeps every chunk's). dk and dv sum the
+    contributions of a kv row's ``groups`` query rows in f32."""
+    BH, Sq, _ = q.shape
+    Sk = k.shape[1]
+    mask = _mask(Sq, Sk, causal, window, q.device)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    rows = _row_chunk(Sq, Sk)
+    for r0 in range(0, BH, rows):
+        r1 = min(r0 + rows, BH)
+        kv_rows = torch.arange(r0, r1, device=q.device) // groups
+        with torch.enable_grad():
+            qc = q[r0:r1].detach().requires_grad_()
+            kc = k[kv_rows].detach().requires_grad_()
+            vc = v[kv_rows].detach().requires_grad_()
+            o = _attend(qc, kc, vc, mask, scale, softcap).to(q.dtype)
+            gq, gk, gv = torch.autograd.grad(o, (qc, kc, vc), do[r0:r1])
+        dq[r0:r1] = gq
+        dk.index_add_(0, kv_rows, gk.float())
+        dv.index_add_(0, kv_rows, gv.float())
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 def kernel_error_limit(o_ref: torch.Tensor, pv_abs: torch.Tensor | None = None,

@@ -24,11 +24,11 @@ def tile_for_block(block_bytes: int, dtype: torch.dtype) -> tuple[int, int]:
     return vmem_tile(block_bytes // dtype.itemsize, dtype.itemsize)
 
 
-def _blocks(flat: torch.Tensor, shape: tuple[int, int],
-            tile: tuple[int, int], out_dtype: torch.dtype
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+def pack_flat(flat: torch.Tensor, shape: tuple[int, int],
+              tile: tuple[int, int], out_dtype: torch.dtype
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Pack the row-major (R, C) array whose first elements are ``flat``
-    and whose tail is zeros."""
+    (contiguous, at most R*C of them) and whose tail is zeros."""
     if flat.device.type == "cuda":
         return kernel.pack_blocks(flat, tile=tile, out_dtype=out_dtype,
                                   shape=shape)
@@ -48,7 +48,7 @@ def pack(x: torch.Tensor, *, block_bytes: int = 4 << 20,
     flat = x.reshape(-1)
     rows = math.ceil(flat.numel() / tc)
     rows += (-rows) % tr
-    return _blocks(flat, (rows, tc), (tr, tc), out_dtype)
+    return pack_flat(flat, (rows, tc), (tr, tc), out_dtype)
 
 
 def unpack(blocks: torch.Tensor, scales: torch.Tensor, shape: tuple[int, ...],
@@ -86,7 +86,7 @@ def quantize_blocks(x: torch.Tensor, *, block_elems: int = 4096
         return (torch.zeros((0, block_elems), dtype=torch.int8, device=x.device),
                 torch.zeros((0,), dtype=torch.float32, device=x.device))
     nb = -(-n // block_elems)
-    return _blocks(x.reshape(-1), (nb * tr, tc), (tr, tc), torch.int8)
+    return pack_flat(x.reshape(-1), (nb * tr, tc), (tr, tc), torch.int8)
 
 
 def dequantize_blocks(blocks: torch.Tensor, scales: torch.Tensor, n: int, *,

@@ -1,0 +1,214 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
+
+Wires together, on one device: config registry -> model -> TrainSetup
+(autograd, AdamW, in-step egress) -> synthetic data pipeline ->
+fault-tolerant Supervisor (asynchronous checkpoints through the staging
+path) -> in-transit sink (the paper's consumer is a live SAVIME you can
+query while training). With ``--intransit`` each step's egress (its
+diagnostics, and with ``--egress grads_int8`` the int8 gradient blocks and
+their scales) is staged into SAVIME as the step ends, as
+``examples/train_with_intransit.py`` stages it, and so is each checkpoint.
+
+The port of ``repro/launch/train.py``, with ``--device`` (CUDA unless the
+CPU is asked for). The flags of what a later slice brings raise: a mesh
+other than 1x1, striped channels, coalescing, fault plans, the
+copy-emulation transports and the compressed cross-pod reduction.
+"""
+from __future__ import annotations
+
+import argparse
+import tempfile
+import time
+from typing import Optional
+
+import numpy as np
+
+from repro_torch import analysis
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_config
+from repro_torch.core.intransit import LATER_TRANSPORTS
+from repro_torch.data import DataConfig, SyntheticLM, batch_to_device
+from repro_torch.device import resolve_device
+from repro_torch.models import Model
+from repro_torch.runtime import Supervisor, SupervisorConfig
+from repro_torch.tensors import to_host
+from repro_torch.train import TrainConfig, TrainSetup
+
+# the names each step's egress is staged under
+EGRESS_NAMES = {"diag": "diag", "blocks": "grad_blocks", "scales": "grad_scales"}
+
+
+def stage_egress(sink, egress: dict, step: int) -> dict:
+    """Stage a step's egress through the sink, each tensor copied to the
+    host first (the step made them fresh; the copies are what the sink
+    holds until acknowledged). Returns the host copies by staged name."""
+    staged = {}
+    for key, name in EGRESS_NAMES.items():
+        if key in egress:
+            staged[name] = to_host(egress[key])
+            sink.stage_array(name, staged[name], step=step)
+    return staged
+
+
+def _reject_later_flags(ap: argparse.ArgumentParser, args) -> None:
+    later = [(args.mesh != "1x1", f"--mesh {args.mesh}: the port runs on one "
+              "device; meshes come with the multi-device slice"),
+             (args.channels > 1, f"--channels {args.channels}: striped "
+              "channels come with a later slice of the port"),
+             (args.coalesce_kb > 0, "--coalesce-kb: coalescing comes with a "
+              "later slice of the port"),
+             (args.faults is not None, "--faults: fault plans come with a "
+              "later slice of the port"),
+             (args.transport in LATER_TRANSPORTS, f"--transport "
+              f"{args.transport}: the copy-emulation baselines come with a "
+              "later slice of the port"),
+             (args.compress_pods, "--compress-pods: the cross-pod reduction "
+              "comes with the multi-device slice")]
+    for asked, why in later:
+        if asked:
+            ap.error(why)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-sized)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; cuda raises when absent")
+    ap.add_argument("--mesh", default="1x1",
+                    help="only 1x1 (one device) in this slice of the port")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (default: a new temporary one)")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--intransit", action="store_true",
+                    help="stage per-step egress and checkpoints into SAVIME")
+    ap.add_argument("--transport", default="rdma_staged",
+                    choices=["rdma_staged", *LATER_TRANSPORTS],
+                    help="egress engine for the in-transit sink (the "
+                         "copy-emulation baselines come with a later slice)")
+    ap.add_argument("--channels", type=int, default=1,
+                    help="striped egress connections (a later slice: 1 only)")
+    ap.add_argument("--wire-format", default="json",
+                    choices=["json", "bin1"],
+                    help="negotiate the struct-packed binary fast path "
+                         "for hot data frames (falls back to json)")
+    ap.add_argument("--coalesce-kb", type=int, default=0,
+                    help="coalesce small datasets (a later slice: 0 only)")
+    ap.add_argument("--page-kb", type=int, default=0,
+                    help="run staging on the paged store with this page "
+                         "size (KiB, 0 = flat regions); cold pages spill "
+                         "to disk under memory pressure (DESIGN.md §11)")
+    ap.add_argument("--spill-dir", default=None,
+                    help="directory for spilled cold pages (default: a "
+                         "spill/ subdir of the staging disk tier)")
+    ap.add_argument("--dedup", action="store_true",
+                    help="content-addressed page dedup: identical sealed "
+                         "pages (e.g. repeated checkpoint shards) stored "
+                         "once (needs --page-kb)")
+    ap.add_argument("--codec", default="none",
+                    help="egress reduction codec for staged datasets "
+                         "(none | delta-rle | int8-block; DESIGN.md §13)")
+    ap.add_argument("--decode-at", default="staging",
+                    choices=["staging", "query"],
+                    help="decode coded datasets at ingest (default) or "
+                         "store them compressed and decode lazily on the "
+                         "staging->SAVIME hop")
+    ap.add_argument("--compress-pods", action="store_true",
+                    help="int8 cross-pod gradient reduction (a later slice)")
+    ap.add_argument("--egress", default="diag",
+                    choices=["none", "diag", "grads_int8"])
+    ap.add_argument("--faults", default=None,
+                    help="seeded fault plan for the staging path (a later "
+                         "slice of the port)")
+    return ap
+
+
+def train(args, log=print) -> dict:
+    """Run the launcher's training. Returns the supervisor's metrics log,
+    the staged diagnostics SAVIME holds (with ``--intransit``) and the
+    run's seconds."""
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    model = Model(cfg)
+    log(f"[train] {cfg.name}: {cfg.param_count() / 1e6:.1f}M params on {dev}")
+    setup = TrainSetup(model, TrainConfig(
+        peak_lr=args.lr, warmup_steps=min(20, args.steps // 5 + 1),
+        total_steps=args.steps, egress=args.egress))
+    state = setup.init_state(0, dev)
+
+    sink = savime = staging = None
+    if args.intransit:
+        from repro_torch.core import (InTransitConfig, InTransitSink,
+                                      SavimeServer, StagingServer)
+        savime = SavimeServer().start()
+        staging = StagingServer(savime.addr, page_bytes=args.page_kb << 10,
+                                spill_dir=args.spill_dir,
+                                dedup=args.dedup).start()
+        sink = InTransitSink(staging.addr, InTransitConfig(
+            io_threads=2, tar_prefix="train", transport=args.transport,
+            wire_format=args.wire_format, page_bytes=args.page_kb << 10,
+            spill_dir=args.spill_dir, dedup=args.dedup, codec=args.codec,
+            decode_at=args.decode_at))
+        log(f"[train] in-transit sink --{args.transport}({args.wire_format} "
+            f"wire{f', codec={args.codec}' if args.codec != 'none' else ''})"
+            f"--> SAVIME {savime.addr}")
+    ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro-torch-ckpt-")
+    ckpt = CheckpointManager(ckpt_dir, sink=sink)
+    try:
+        step_fn = setup.step_fn()
+
+        def step(state, batch):
+            state, metrics, egress = step_fn(state, batch)
+            if sink is not None:
+                stage_egress(sink, egress, int(state["step"]))
+            return state, metrics, egress
+
+        sup = Supervisor(step, ckpt, SupervisorConfig(ckpt_every=args.ckpt_every))
+        dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                        global_batch=args.batch)
+        batches = (batch_to_device(b, dev) for b in SyntheticLM(dc).batches())
+        t0 = time.perf_counter()
+        state = sup.run(state, batches, args.steps,
+                        abstract_state=setup.state_specs(), device=dev)
+        dt = time.perf_counter() - t0
+        losses = [m["loss"] for m in sup.metrics_log]
+        log(f"[train] {args.steps} steps in {dt:.1f}s "
+            f"({dt / max(args.steps, 1) * 1e3:.0f} ms/step) "
+            f"loss {losses[0]:.3f} -> {losses[-1]:.3f}; "
+            f"restarts={sup.restarts}; checkpoints in {ckpt_dir}")
+        diag: Optional[np.ndarray] = None
+        if sink is not None and args.egress != "none":
+            sink.flush()
+            with analysis.AnalysisSession(savime.addr) as an:
+                diag = an.execute(analysis.tar("train_diag").attr("v")
+                                  .select()).array
+            log(f"[train] staged {sink.staged_arrays} arrays, "
+                f"{sink.staged_bytes / 1e6:.1f} MB into SAVIME; it holds "
+                f"{diag.shape[0]} step diagnostics, last loss "
+                f"{diag[-1, 0]:.3f}")
+        return {"metrics": sup.metrics_log, "restarts": sup.restarts,
+                "diag": diag, "seconds": dt}
+    finally:
+        ckpt.close()
+        if sink is not None:
+            sink.close()
+            staging.stop()
+            savime.stop()
+
+
+def main(argv=None) -> None:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    _reject_later_flags(ap, args)
+    train(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -74,6 +74,15 @@ def tree_map(fn: Callable, tree: Tree) -> Tree:
     return fn(tree)
 
 
+def tree_leaves(tree: Tree) -> list:
+    """The leaves of a nested dict/list tree in ``tree_map``'s order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
 def init_params(spec_tree: Tree, generator: torch.Generator,
                 device: torch.device) -> Tree:
     return tree_map(lambda s: s.materialize(generator, device), spec_tree)

@@ -1,16 +1,23 @@
-"""Public model API: init / prefill / decode, the port of
-``repro/models/model.py`` for the attention and mamba kinds."""
+"""Public model API: init / loss / prefill / decode, the port of
+``repro/models/model.py`` for the attention and mamba kinds.
+
+The loss is a sequence-chunked cross-entropy: the full (B, S, V) logits are
+never made (V is 256000 for gemma2), and each chunk's unembed is recomputed
+in the backward pass (``torch.utils.checkpoint`` around the chunk, where the
+reference puts ``jax.checkpoint``)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import init_params, to_dtype
+from repro_torch.models.layers import init_params, softcap, to_dtype, unembed
 
 Tree = Any
 
@@ -61,10 +68,26 @@ class Model:
                                 self.cfg)
 
     # -- forward ----------------------------------------------------------
+    def loss_fn(self, params: Tree, batch: dict, xent_chunk: int = 512):
+        """batch: tokens/targets/loss_mask (B,S). Returns (loss, metrics):
+        loss = nll + 1e-4 z2 + 1e-2 moe_lb + 1e-3 moe_z, metrics {nll, z2,
+        moe_lb, moe_z} as f32 scalars."""
+        cfg = self.cfg
+        if "prefix_embed" in batch:
+            raise NotImplementedError(
+                "prefix embeddings (the vlm/audio frontends) are not ported")
+        hidden, aux, _ = tfm.apply_transformer(params, batch["tokens"], cfg=cfg)
+        nll, z2 = _chunked_xent(params, hidden, batch["targets"],
+                                batch["loss_mask"], cfg, xent_chunk)
+        aux = {k: torch.tensor(v, dtype=torch.float32, device=nll.device)
+               for k, v in aux.items()}
+        loss = nll + 1e-4 * z2 + 1e-2 * aux["moe_lb"] + 1e-3 * aux["moe_z"]
+        return loss, {"nll": nll, "z2": z2, **aux}
+
     def prefill(self, params: Tree, tokens: torch.Tensor, max_len: int = 0):
         """Returns (last_token_logits (B,V), cache). max_len = cache
         capacity (>= prompt length; gives decode headroom)."""
-        hidden, cache = tfm.apply_transformer(
+        hidden, _, cache = tfm.apply_transformer(
             params, tokens, cfg=self.cfg, return_cache=True, cache_len=max_len)
         logits = tfm.logits_from_hidden(params, hidden[:, -1:], self.cfg)
         return logits[:, 0], cache
@@ -73,7 +96,44 @@ class Model:
                     pos: torch.Tensor, cache: Tree):
         """tokens: (B,1); pos: (B,). Returns (logits (B,V), cache), the
         cache updated in place."""
-        hidden, cache = tfm.apply_transformer(
+        hidden, _, cache = tfm.apply_transformer(
             params, tokens, cfg=self.cfg, positions=pos[:, None], cache=cache)
         logits = tfm.logits_from_hidden(params, hidden, self.cfg)
         return logits[:, 0], cache
+
+
+def _xent_chunk(embed_params: dict, h: torch.Tensor, t: torch.Tensor,
+                m: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's masked sums of nll and logz**2; the logits in f32 after
+    the softcap, as the reference computes them."""
+    lg = unembed(embed_params, h, cfg.tie_embeddings)
+    lg = softcap(lg, cfg.logit_softcap).float()
+    logz = torch.logsumexp(lg, dim=-1)                               # (B,c)
+    tgt = torch.gather(lg, -1, t.long()[..., None])[..., 0]
+    return ((logz - tgt) * m).sum(), (logz.square() * m).sum()
+
+
+def _chunked_xent(params: dict, hidden: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor, cfg, chunk: int):
+    """Sequence-chunked masked cross-entropy and z-loss term. hidden:
+    (B,S,M); targets/mask: (B,S). S is padded to a multiple of the chunk
+    (pad positions are masked out); each chunk is recomputed in backward."""
+    B, S, _ = hidden.shape
+    c = min(chunk, S)
+    pad = (-S) % c
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    nll_sum, z2_sum, m_sum = zero, zero, zero
+    for i in range(0, S + pad, c):
+        sl = slice(i, i + c)
+        nll_c, z2_c = torch.utils.checkpoint.checkpoint(
+            _xent_chunk, params["embed"], hidden[:, sl], targets[:, sl],
+            mask[:, sl], cfg, use_reentrant=False)
+        nll_sum = nll_sum + nll_c
+        z2_sum = z2_sum + z2_c
+        m_sum = m_sum + mask[:, sl].sum()
+    denom = torch.clamp(m_sum, min=1.0)
+    return nll_sum / denom, z2_sum / denom

@@ -6,19 +6,31 @@ The parameter tree keeps the reference's layout: ``embed``, ``final_ln``,
 for the remainder. The reference stacks each ``scan`` entry on a leading
 periods axis for ``lax.scan``; here a Python loop replaces the scan, so each
 ``scan`` entry is a list with one block per period.
+
+Under autograd each block is rematerialized when ``cfg.remat`` is not
+"none": ``torch.utils.checkpoint`` keeps the block's input and recomputes
+the block in the backward pass, as the reference's ``jax.checkpoint`` does.
+The reference's "dots" and "comm" policies save some of a block's products;
+here they are treated as "full" (they change memory, not what is computed).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import kvcache, ssm as ssm_lib
 from repro_torch.models.layers import (
     embed, embed_specs, mlp, mlp_specs, rms_norm, rms_norm_spec, softcap,
-    stack_specs, to_dtype, unembed, unstack,
+    stack_specs, to_dtype, tree_map, unembed, unstack,
 )
+
+
+# no ported kind has experts: the MoE aux losses are always 0
+AUX0 = {"moe_lb": 0.0, "moe_z": 0.0}
 
 
 def _key(i: int, kind: str) -> str:
@@ -85,6 +97,16 @@ def unstack_scan(tree: dict, cfg) -> dict:
                              for k, t in tree["scan"].items()}}
 
 
+def unstack_scan_specs(spec_tree: dict, cfg) -> dict:
+    """``unstack_scan`` for a spec tree: each stacked ``scan`` spec becomes a
+    list of per-period specs without the periods axis."""
+    n_scan, _ = _plan(cfg)
+    return {**spec_tree, "scan": {
+        k: [tree_map(lambda s: dataclasses.replace(s, shape=s.shape[1:]), t)
+            for _ in range(n_scan)]
+        for k, t in spec_tree["scan"].items()}}
+
+
 # ---------------------------------------------------------------------------
 # Apply
 # ---------------------------------------------------------------------------
@@ -122,10 +144,19 @@ def apply_stack(params: dict, x: torch.Tensor, *, cfg,
         "scan": {_key(i, k): [] for i, k in enumerate(pat)} if n_scan else {},
         "rem": {}}
 
-    def run(kind, p, x, c_in):
+    def block(kind, p, x, c_in):
         return apply_block(kind, p, x, cfg=cfg, positions=positions,
                            cache=c_in, return_cache=return_cache,
                            cache_len=cache_len)
+
+    remat = (cfg.remat != "none" and torch.is_grad_enabled()
+             and not use_cache and not return_cache)
+
+    def run(kind, p, x, c_in):
+        if remat:
+            return torch.utils.checkpoint.checkpoint(
+                block, kind, p, x, c_in, use_reentrant=False)
+        return block(kind, p, x, c_in)
 
     for period in range(n_scan):
         for i, kind in enumerate(pat):
@@ -148,7 +179,8 @@ def apply_transformer(params: dict, tokens: torch.Tensor, *, cfg,
                       positions: Optional[torch.Tensor] = None,
                       cache: Optional[dict] = None,
                       return_cache: bool = False, cache_len: int = 0):
-    """Returns (hidden (B,S,M), new_cache). Logits are the caller's."""
+    """Returns (hidden (B,S,M), aux, new_cache), aux the reference's MoE
+    losses (0 for every ported kind). Logits are the caller's."""
     x = embed(params["embed"], tokens, cfg.scale_embeddings,
               to_dtype(cfg.compute_dtype))
     B, S, _ = x.shape
@@ -159,7 +191,7 @@ def apply_transformer(params: dict, tokens: torch.Tensor, *, cfg,
                                cache=cache, return_cache=return_cache,
                                cache_len=cache_len)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps, cfg.scale_embeddings)
-    return x, new_cache
+    return x, dict(AUX0), new_cache
 
 
 def logits_from_hidden(params: dict, hidden: torch.Tensor, cfg) -> torch.Tensor:

@@ -286,5 +286,94 @@ def test_bf16_cuda_tensor_stages_without_jax(cuda_device):
         assert r["max_err"] <= (2 / 127 if packed else 0.0)
 
 
+def _rel_frobenius(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_function_gradients_match_plain(cuda_device, dtype):
+    """The kernel's autograd.Function on the card: one launch forward (the
+    output within kernel_error_limit), and dq, dk, dv (the plain version
+    recomputed and differentiated by row chunks) nonzero and within the
+    training gate of plain autograd through the whole plain version: 1e-2
+    relative (Frobenius)."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import ops, ref
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    Bq, Sq, Hq, Hkv, D = 2, 300, 4, 2, 128
+    mk = lambda H: torch.randn((Bq, Sq, H, D), generator=g,  # noqa: E731
+                               device=cuda_device).to(dtype)
+    q, k, v, do = mk(Hq), mk(Hkv), mk(Hkv), mk(Hq)
+    kw = dict(scale=(4608 / 32) ** -0.5, softcap=50.0, causal=True, window=100)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = LAUNCHES["flash_attention"]
+    o = ops.gqa_attention(*leaves, **kw)
+    got = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    want_o = ops.gqa_attention_ref(q.float(), k.float(), v.float(), **kw)
+    pv_abs = ops.gqa_attention_ref(q.float(), k.float(), v.float().abs(), **kw)
+    lim = ref.kernel_error_limit(want_o, pv_abs if dtype == torch.bfloat16
+                                 else None, dtype=dtype)
+    assert bool(((o.float() - want_o).abs() <= lim).all())
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ops.gqa_attention_ref(*plain, **kw), plain, do)
+    for name, a, b in zip("qkv", got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert float(a.float().abs().max()) > 0, name
+        assert _rel_frobenius(a, b) <= 1e-2, (name, _rel_frobenius(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_train_step_launches_and_gradients_on_the_card(cuda_device, remat,
+                                                       monkeypatch):
+    """A train step of the gemma2 smoke model widened to head dim 128 (the
+    wgmma instance), 2 layers (one local/global period, as the training cell
+    of chip_smoke.py), 2 microbatches, grads_int8 egress: the flash
+    kernel launches once a layer a microbatch forward, and once more in the
+    backward's recompute under remat; the pack kernel once a step. Every
+    leaf's gradient lies within 1e-2 relative (Frobenius) of the same step's
+    through the plain attention, the attention projections included."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM, batch_to_device
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train import TrainConfig, TrainSetup
+    cfg = dataclasses.replace(get_config("gemma2-27b").smoke(), n_layers=2,
+                              head_dim=128, remat=remat)
+    ts = TrainSetup(Model(cfg), TrainConfig(microbatches=2, egress="grads_int8",
+                                            egress_blocks=8))
+    state = ts.init_state(0, cuda_device)
+    b = batch_to_device(next(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=96, global_batch=4)).batches()),
+        cuda_device)
+    reset_launches()
+    loss, _, grads = ts.loss_and_grads(state["params"], b)
+    torch.cuda.synchronize()
+    per_micro = 2 if remat == "full" else 1
+    assert LAUNCHES["flash_attention"] == 2 * 2 * per_micro
+    with monkeypatch.context() as mp:
+        mp.setattr(attention_mod, "gqa_attention", ops.gqa_attention_ref)
+        loss_p, _, grads_p = ts.loss_and_grads(state["params"], b)
+    assert abs(float(loss) - float(loss_p)) <= 1e-3 * abs(float(loss_p))
+    for a, c in zip(tree_leaves(grads), tree_leaves(grads_p)):
+        assert _rel_frobenius(a, c) <= 1e-2
+    for proj in ("wq", "wk", "wv", "wo"):
+        assert float(grads["rem"]["1:global"]["attn"][proj].abs().max()) > 0
+    reset_launches()
+    state, m, e = ts.step_fn()(state, b)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"flash_attention": 2 * 2 * per_micro, "ssm_scan": 0,
+                        "staging_pack": 1}
+    assert e["blocks"].shape == (8, 1024) and bool(torch.isfinite(m["loss"]))
+
+
 def test_cuda_marker_is_registered(pytestconfig):
     assert any(m.startswith("cuda:") for m in pytestconfig.getini("markers"))

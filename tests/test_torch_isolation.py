@@ -1,9 +1,9 @@
 """The port stands alone: no file of src/repro_torch/ nor chip_smoke.py
 imports jax, ml_dtypes (numpy's bfloat16, which jax brings) or anything of
 repro; every port module imports with all of them blocked; entry points refuse to run on the CPU unless asked to; the serve
-launcher stages its latencies in transit and rejects the flags of what a
-later slice brings; chip_smoke.py fails without a GPU and outside a
-checkout."""
+and train launchers reject the flags of what a later slice brings, and the
+serve launcher stages its latencies in transit; chip_smoke.py fails without
+a GPU and outside a checkout."""
 import ast
 import os
 import shutil
@@ -18,7 +18,8 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "torch_simulation_intransit.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "torch_simulation_intransit.py",
+    ROOT / "examples" / "torch_train_with_intransit.py"]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
@@ -56,6 +57,7 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
     """jax, jaxlib, ml_dtypes and repro blocked."""
     mods = _port_modules()
     assert "repro_torch.launch.serve" in mods and "repro_torch.convert" in mods
+    assert "repro_torch.launch.train" in mods
     prog = (
         "import importlib, sys\n"
         f"for name in {FORBIDDEN!r}:\n"
@@ -74,8 +76,10 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_launch
     from repro_torch.launch.serve import serve
     from repro_torch.models import Model
+    from repro_torch.train import TrainSetup
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("gemma2-27b").smoke()
@@ -83,9 +87,18 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
         serve(cfg, batch=1, prompt_len=4, new_tokens=1, log=lambda m: None)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Model(cfg).init(seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainSetup(Model(cfg)).init_state(seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_launch.main(["--arch", "gemma2-27b", "--smoke", "--steps", "1"])
     res = serve(cfg, batch=1, prompt_len=4, new_tokens=2, device="cpu",
                 log=lambda m: None)
     assert res["tokens"].shape == (1, 2)
+    logs = []
+    out = train_launch.train(train_launch.build_parser().parse_args(
+        ["--arch", "gemma2-27b", "--smoke", "--device", "cpu", "--steps", "2",
+         "--seq", "16", "--batch", "2"]), log=logs.append)
+    assert len(out["metrics"]) == 2 and "on cpu" in logs[0]
 
 
 @pytest.mark.parametrize("flag", ["--channels=2", "--mesh=1x1", "--pool=2",
@@ -102,6 +115,23 @@ def test_serve_cli_rejects_data_plane_flags(flag, capsys):
         assert "invalid choice: 'scp_mem'" in err
     else:
         assert "unrecognized arguments" in err
+
+
+@pytest.mark.parametrize("flag,why", [
+    ("--mesh=2x1", "multi-device"), ("--channels=2", "striped channels"),
+    ("--coalesce-kb=64", "coalescing"), ("--faults=seed=1", "fault plans"),
+    ("--transport=scp_mem", "copy-emulation"),
+    ("--compress-pods", "cross-pod reduction")])
+def test_train_cli_rejects_data_plane_flags(flag, why, capsys):
+    """The reference's train flags that the port cannot serve yet: the mesh,
+    striped channels, coalescing, fault plans, the copy-emulation transports
+    and the compressed cross-pod reduction. Each exits with argparse's code
+    2 before anything runs."""
+    from repro_torch.launch.train import main
+    with pytest.raises(SystemExit) as e:
+        main(["--arch", "gemma2-27b", "--smoke", "--device", "cpu", flag])
+    assert e.value.code == 2
+    assert why in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("codec", ["int8-block", "none"])
