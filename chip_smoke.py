@@ -52,9 +52,10 @@ Phases, each of which makes the script exit non-zero when it fails:
      field), then the same 8 steps with ``codec="none"`` (a full float32
      copy to the host a step), for the comparison the paper makes; then one
      step of the mesh in bfloat16, once with each codec, read back equal to
-     the host codec's decode (int8-block) or to its bits (none); then the
-     pack kernel is timed at that mesh.
-
+     the host codec's decode (int8-block) or to its bits (none);
+  7. the pack kernel's time at that mesh: checked once more against its
+     plain version, then timed with it, on normal values, against its bound
+     and beside the library's non-quantizing re-tile;
   8. train: (a) gemma2-27b at published widths with its depth cut to 2
      layers (``TRAIN``), ``remat="full"``, bf16 compute on f32 params, 4
      steps of AdamW at global batch 2 x 4600 tokens in 2 microbatches,
@@ -69,7 +70,30 @@ Phases, each of which makes the script exit non-zero when it fails:
      AdamW update's time (CUDA events) are printed. (b) recovery: the
      example ``examples/torch_train_with_intransit.py`` on the card at the
      gemma2-27b smoke config with its own settings (200 steps, one failure
-     injected at step 100), in this process, with its launches counted.
+     injected at step 100), in this process, with its launches counted;
+  9. the paper's transports from the card (``transports_from_the_card``):
+     each step of the mesh made on the card by ``SeismicField`` and staged
+     through the port's sink, read back from SAVIME and held (int8-block:
+     the host codec's decode byte for byte; none and the copy baselines:
+     the field's float32 bits), the pack kernel's launches counted exactly,
+     each run's blocked stage_array ms and raw MB/s end to end printed.
+     (a) the paper's Fig 6, 2 steps each: rdma_staged with codec none at
+     block sizes 1, 4 and 16 MiB, and the scp_mem, scp_disk and ssh_direct
+     baselines with codec int8-block set, which must land raw bytes with no
+     pack launch and no codec stats; (b) 4 striped channels, int8-block, 2
+     steps: 2 launches, wire bytes n + 4 blocks a step, every channel
+     carrying stripes; (c) a 2-backend StagingPool behind its gateway,
+     int8-block, 4 steps: 4 launches, each step on the backend the hash
+     ring names (both backends used), a RouterSession's gather of the last
+     step whole, and a second tenant past its quota refused
+     (QuotaExceededError) before any backend takes in a byte; (d) (b) under ``FAULT_SPEC`` on the port's
+     wire: the read-back still equal, replays plus re-sent stripes at least
+     1, launches 2 + replays; (e) ``repro_torch.launch.train.main`` on the
+     card at the gemma2-27b smoke config with ``TRAIN_FLAGS`` (2 channels,
+     64 KiB coalescing, a fault plan, 50 steps, grads_int8 egress): the loss
+     falls, SAVIME holds 50 diagnostics, the pack kernel launches 50 times
+     and the flash kernel layers x microbatches x (2 under remat, else 1)
+     x 50 times, and the egress rode coalesced frames.
 
 The pack kernel is checked in phase 3 too, byte for byte against its plain
 version (reference cases, the codec's ragged sizes, exact ties, the full
@@ -175,6 +199,23 @@ PACK_TILE = (CODEC_BLOCK // 128, 128)
 # the staging server's memory tier lives in /dev/shm: at most this share of it
 SHM_SHARE = 0.5
 MAX_STAGING_MEM = 4 << 30
+# phase 9, the paper's transports from the card, at MESH: 2 steps a run in
+# 9a, 9b and 9d and 4 in 9c (the paper's trials run 500), 50 training steps
+# in 9e. Its time, estimated from phase 6's on the card (~1 s a staged step
+# of the mesh, int8-block or none) before the first run of phase 9: 9a
+# ~25 s (3 block sizes and 3 copy baselines, whose 16 KiB copies and CRC
+# run in Python at a few hundred MB/s), 9b ~4 s, 9c ~8 s, 9d ~5 s, 9e ~10 s,
+# and the read-back checks (a host encode and decode of the mesh a step,
+# ~1-2 s) ~20 s: about a minute and a quarter in all.
+TRANSPORT_STEPS = 2
+POOL_STEPS = 4
+FIG6_BLOCKS_MIB = (1, 4, 16)
+FIG6_BASELINES = ("scp_mem", "scp_disk", "ssh_direct")
+STRIPE_CHANNELS = 4
+FAULT_SPEC = "seed=42;drop:op=stripe,nth=3"
+TRAIN_FLAGS = ["--arch", "gemma2-27b", "--smoke", "--intransit", "--egress",
+               "grads_int8", "--channels", "2", "--coalesce-kb", "64",
+               "--faults", "seed=7;drop:op=stripe,nth=5", "--steps", "50"]
 
 
 def log(msg: str) -> None:
@@ -331,6 +372,290 @@ def swapped(module, name: str, value):
         yield
     finally:
         setattr(module, name, old)
+
+
+def _sync(dev) -> None:
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _held_steps(savimes, tar: str, n_steps: int) -> dict:
+    """step -> (index of the SAVIME server holding it, its "v" values)."""
+    held = {}
+    for i, sv in enumerate(savimes):
+        t = sv.engine.tars.get(tar)
+        for st in (t.subtars if t is not None else ()):
+            held[st.origin[0]] = (i, st.data["v"].reshape(-1))
+    if sorted(held) != list(range(n_steps)):
+        fail(f"{tar}: SAVIME holds steps {sorted(held)}, want 0..{n_steps - 1}")
+    return held
+
+
+def transports_from_the_card(dev, mesh: dict, mem_capacity: int,
+                             disk_dir: Path) -> dict:
+    """Phase 9: the paper's transports driven from a producer on ``dev`` at
+    ``mesh``, each step made there by SeismicField and staged through the
+    port's sink; every run reads each step back from SAVIME and holds it
+    (int8-block: equal byte for byte to the host codec's decode of the
+    field; none and the copy baselines: the field's float32 bits) and
+    counts the pack kernel's launches exactly. Returns the readings."""
+    import torch
+
+    from repro_torch.analysis import tar
+    from repro_torch.codec.int8block import Int8BlockCodec
+    from repro_torch.configs import get_config
+    from repro_torch.core import (InTransitConfig, InTransitSink,
+                                  SavimeServer, StagingServer)
+    from repro_torch.data.seismic import SeismicConfig, SeismicField
+    from repro_torch.faults import FaultPlan, injected
+    from repro_torch.gateway import (GatewayClient, QuotaExceededError,
+                                     RouterSession, StagingPool, Tenant)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train as train_launch
+    from repro_torch.train import TrainConfig
+    from repro_torch.transport import TransferSession, TransportConfig
+
+    n = mesh["nx"] * mesh["ny"] * mesh["nz"]
+    raw_step = 4 * n
+    wire_step = n + 4 * -(-n // CODEC_BLOCK)
+    sim = SeismicField(SeismicConfig(**mesh), device=dev)
+    host_codec = Int8BlockCodec()
+    fields = {}
+
+    def field(step: int):
+        if step not in fields:
+            fields[step] = sim.step(step).float()
+        return fields[step]
+
+    def want_bits(step: int, packed: bool) -> np.ndarray:
+        x = field(step).cpu().numpy()
+        if packed:
+            x = host_codec.decode(*host_codec.encode(x)).view(np.float32)
+        return x.reshape(-1).view(np.uint32)
+
+    def check_steps(what: str, savimes, tar_name: str, n_steps: int,
+                    packed: bool) -> dict:
+        held = _held_steps(savimes, tar_name, n_steps)
+        for step, (_, v) in held.items():
+            if not np.array_equal(v.view(np.uint32), want_bits(step, packed)):
+                fail(f"{what}: step {step} read back differs from "
+                     f"{'the host codec decode' if packed else 'the field'}")
+        return held
+
+    def stage(what: str, addr: str, cfg, n_steps: int) -> dict:
+        """Stage n_steps steps of the mesh through a sink at addr, flushing
+        each; per step the ms stage_array blocks the producer and the raw
+        MB/s end to end (from the call to stage_array until SAVIME holds
+        the step)."""
+        sink = InTransitSink(addr, cfg)
+        rows = []
+        try:
+            for step in range(n_steps):
+                field(step)
+            _sync(dev)
+            reset_launches()
+            t_run = time.perf_counter()
+            for step in range(n_steps):
+                t1 = time.perf_counter()
+                sink.stage_array("velocity", field(step), step=step)
+                t2 = time.perf_counter()
+                sink.flush(timeout=600)
+                t3 = time.perf_counter()
+                rows.append({"stage_ms": (t2 - t1) * 1e3,
+                             "flush_ms": (t3 - t2) * 1e3,
+                             "raw_mb_per_s": raw_step / 1e6 / (t3 - t1)})
+                log(f"{what} step {step}: blocked in stage_array "
+                    f"{rows[-1]['stage_ms']:.1f} ms, flush "
+                    f"{rows[-1]['flush_ms']:.1f} ms; "
+                    f"{rows[-1]['raw_mb_per_s']:.1f} raw MB/s end to end")
+            run_s = time.perf_counter() - t_run
+            launches = dict(LAUNCHES)
+        finally:
+            sink.close()
+        st = sink.session.stats
+        codec = {k: v for k, v in st.codec.items() if k != "encode_s"}
+        return {"steps": rows, "run_s": run_s,
+                "raw_mb_per_s": n_steps * raw_step / 1e6 / run_s,
+                "stage_ms_median": float(np.median([r["stage_ms"] for r in rows])),
+                "launches": launches, "codec": codec,
+                "channels": st.channels, "replays": st.replays}
+
+    def single(what: str, n_steps: int, spec: str = "", **cfg) -> dict:
+        """One run against a SAVIME (and staging, on the staged path)."""
+        staged = cfg.get("transport", "rdma_staged") == "rdma_staged"
+        savime = SavimeServer().start()
+        staging = StagingServer(savime.addr, mem_capacity=mem_capacity,
+                                disk_dir=str(disk_dir),
+                                send_threads=2).start() if staged else None
+        try:
+            with injected(FaultPlan.parse(spec),
+                          scope=[staging.addr if staged else savime.addr]) as inj:
+                r = stage(what, staging.addr if staged else savime.addr,
+                          InTransitConfig(io_threads=2, tar_prefix="t9",
+                                          max_inflight_bytes=256 << 20, **cfg),
+                          n_steps)
+            packed = staged and cfg.get("codec") == "int8-block"
+            check_steps(what, [savime], "t9_velocity", n_steps, packed)
+        finally:
+            if staging is not None:
+                staging.stop()
+            savime.stop()
+        r["fired"] = dict(inj.fired)
+        return r
+
+    def packs(n: int) -> dict:
+        return {"flash_attention": 0, "ssm_scan": 0, "staging_pack": n}
+
+    out = {}
+    # -- 9a. the paper's Fig 6 -------------------------------------------------
+    free_shm = shm_free_bytes()
+    if free_shm < 4 * raw_step:
+        fail(f"scp_mem stores a step under /dev/shm: {free_shm} B free, want "
+             f"at least {4 * raw_step} (two steps and the staging tier)")
+    for mib in FIG6_BLOCKS_MIB:
+        what = f"9a rdma_staged block {mib} MiB [none]"
+        r = single(what, TRANSPORT_STEPS, block_size=mib << 20)
+        if r["launches"] != packs(0) or r["codec"] != {}:
+            fail(f"{what}: launches {r['launches']}, codec {r['codec']}")
+        out[what] = r
+    for engine in FIG6_BASELINES:
+        what = f"9a {engine} [int8-block set]"
+        r = single(what, TRANSPORT_STEPS, transport=engine, codec="int8-block")
+        if r["launches"] != packs(0) or r["codec"] != {}:
+            fail(f"{what}: the codec is not inert on a baseline: launches "
+                 f"{r['launches']}, codec {r['codec']}")
+        out[what] = r
+
+    # -- 9b. striped channels --------------------------------------------------
+    def striped(what: str, spec: str = "") -> dict:
+        r = single(what, TRANSPORT_STEPS, spec, codec="int8-block",
+                   n_channels=STRIPE_CHANNELS)
+        want_launches = packs(TRANSPORT_STEPS + r["replays"])
+        c = r["codec"]
+        if r["launches"] != want_launches or c.get("fallbacks") != 0 or \
+                c.get("wire_bytes") != TRANSPORT_STEPS * wire_step + r["replays"] * wire_step:
+            fail(f"{what}: launches {r['launches']} (want {want_launches}), "
+                 f"codec {c} (want wire {TRANSPORT_STEPS} x {wire_step} a step)")
+        live = r["channels"][-STRIPE_CHANNELS:]
+        if len(live) != STRIPE_CHANNELS or not any(ch["n_stripes"] for ch in live):
+            fail(f"{what}: channel stats {r['channels']}")
+        log(f"{what}: channels {json.dumps(r['channels'])}; replays {r['replays']}; "
+            f"faults fired {r['fired']}")
+        return r
+
+    what = f"9b rdma_staged x{STRIPE_CHANNELS} channels [int8-block]"
+    r = striped(what)
+    if not all(ch["n_stripes"] > 0 for ch in r["channels"]) or r["replays"]:
+        fail(f"{what}: a channel carried no stripe, or a write replayed")
+    out[what] = r
+
+    # -- 9c. the staging gateway -------------------------------------------------
+    what = "9c StagingPool(2) gateway [int8-block]"
+    pool = StagingPool(2, mem_capacity=mem_capacity // 2,
+                       tenants=[Tenant("sim", token="tok-sim"),
+                                # half of one step's int8 wire bytes
+                                Tenant("capped", token="tok-capped",
+                                       quota_bytes=wire_step // 2)],
+                       staging_kwargs={"disk_dir": str(disk_dir),
+                                       "send_threads": 2}).start()
+    try:
+        # placement hashes the dataset's name against the backends' names
+        # only: under the prefix "pool" the 4 steps land on both backends
+        # (0, 1, 0, 1), so the gather below merges across them
+        r = stage(what, pool.addr, InTransitConfig(
+            io_threads=2, tar_prefix="pool", max_inflight_bytes=256 << 20,
+            codec="int8-block", gateway=True, tenant="tok-sim"), POOL_STEPS)
+        held = check_steps(what, pool.savimes, "pool_velocity", POOL_STEPS, True)
+        gc_ = GatewayClient(pool.addr)
+        try:
+            ring = gc_.ring
+        finally:
+            gc_.close()
+        placed = {step: int(ring.place(f"pool_velocity__{step}").name
+                            .removeprefix("backend")) for step in held}
+        on = {step: i for step, (i, _) in held.items()}
+        datasets = [st.stats["datasets"] for st in pool.stagings]
+        last = POOL_STEPS - 1
+        with RouterSession(gateway_addr=pool.addr) as rs:
+            gathered = rs.execute(tar("pool_velocity").attr("v").range(
+                (last, 0, 0, 0), (last, mesh["nx"] - 1, mesh["ny"] - 1,
+                                  mesh["nz"] - 1)).select()).array
+        whole = np.array_equal(gathered.reshape(-1).view(np.uint32),
+                               want_bits(last, True))
+        # the second tenant, past its quota: refused before any byte lands
+        bytes_before = [st.stats["bytes_in"] for st in pool.stagings]
+        reset_launches()
+        with TransferSession("rdma_staged", TransportConfig(
+                gateway_addr=pool.addr, tenant="tok-capped",
+                codec="int8-block")) as capped:
+            fut = capped.write("pool_capped", field(0))
+            try:
+                fut.wait(600)
+                refused = None
+            except QuotaExceededError as e:
+                refused = str(e)
+        capped_launches = LAUNCHES["staging_pack"]
+        bytes_after = [st.stats["bytes_in"] for st in pool.stagings]
+        usage = pool.gateway.tenants.snapshot()
+    finally:
+        pool.stop()
+    log(f"{what}: launches {r['launches']}; backends' datasets {datasets}; "
+        f"steps on backends {on}, the ring places them on {placed}; the "
+        f"RouterSession's gather of step {last} equal to the host decode: "
+        f"{whole}; the capped tenant: {refused!r}, backends' bytes in "
+        f"{bytes_before} -> {bytes_after}, its write's pack launches "
+        f"{capped_launches} (the encode precedes admission); tenants {usage}")
+    if r["launches"] != packs(POOL_STEPS) or sum(datasets) != POOL_STEPS or \
+            on != placed or len(set(on.values())) != 2 or not whole:
+        fail(f"{what}: launches, datasets, placement or the gather is wrong")
+    if refused is None or bytes_after != bytes_before or capped_launches != 1 or \
+            usage["capped"]["rejects"] < 1 or usage["capped"]["bytes"] != 0:
+        fail(f"{what}: the capped tenant was not refused before any byte landed")
+    r.update(backend_datasets=datasets, placement=on, capped_refused=refused,
+             capped_launches=capped_launches)
+    out[what] = r
+
+    # -- 9d. faults: 9b under a dropped stripe ---------------------------------
+    what = f"9d rdma_staged x{STRIPE_CHANNELS} channels [int8-block] under {FAULT_SPEC!r}"
+    r = striped(what, FAULT_SPEC)
+    resent = sum(ch["adopted"] for ch in r["channels"])
+    if r["fired"] != {"drop": 1} or r["replays"] + resent < 1:
+        fail(f"{what}: fired {r['fired']}, replays {r['replays']}, re-sent "
+             f"stripes {resent}")
+    r["resent_stripes"] = resent
+    out[what] = r
+
+    # -- 9e. the train launcher with the new flags -----------------------------
+    what = "9e launch.train " + " ".join(TRAIN_FLAGS)
+    cfg = get_config("gemma2-27b").smoke()
+    n_steps = int(TRAIN_FLAGS[TRAIN_FLAGS.index("--steps") + 1])
+    want = {"flash_attention": cfg.n_layers * TrainConfig().microbatches
+            * (1 if cfg.remat == "none" else 2) * n_steps,
+            "ssm_scan": 0, "staging_pack": n_steps}
+    reset_launches()
+    t0 = time.perf_counter()
+    res = train_launch.main([*TRAIN_FLAGS, "--device", str(dev)])
+    train_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    losses = [m["loss"] for m in res["metrics"]]
+    st, tr = res["staging"], res["transfer"]
+    r = {"seconds": train_s, "loss_first": losses[0], "loss_last": losses[-1],
+         "diag_rows": int(res["diag"].shape[0]), "launches": launches,
+         "want_launches": want, "restarts": res["restarts"],
+         "staging": {k: st[k] for k in ("datasets", "batches",
+                                        "batched_datasets", "stripes")},
+         "replays": tr["replays"],
+         "resent_stripes": sum(ch["adopted"] for ch in tr["channels"])}
+    log(f"{what} on {dev}: {json.dumps(r)}")
+    if not (losses[-1] < losses[0] and r["diag_rows"] == n_steps
+            and launches == want and st["batches"] >= 1
+            and st["batched_datasets"] >= 3 * n_steps):
+        fail(f"{what}: want a falling loss, {n_steps} diagnostics, launches "
+             f"{want} and the egress in coalesced frames")
+    out[what] = r
+    fields.clear()
+    return out
 
 
 def main() -> None:
@@ -1404,6 +1729,14 @@ def main() -> None:
         fail(f"the recovery run: {rec}, want launches {want_rec}")
     train_stats["recovery"] = rec
     log(f"train done at {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 9. the paper's transports from the card ----------------------------------
+    t9 = time.perf_counter()
+    transports = transports_from_the_card(dev, MESH, mem_capacity, disk_dir)
+    log(f"transports done in {time.perf_counter() - t9:.1f} s: "
+        f"{json.dumps({k: {m: v[m] for m in ('raw_mb_per_s', 'stage_ms_median', 'launches', 'replays') if m in v} for k, v in transports.items()})}")
 
     summary = {"kernels": [{
         "name": "flash_attention",
@@ -1413,6 +1746,8 @@ def main() -> None:
         "launches": fa_launches["flash_attention"],
         "launches_train": train_launches["flash_attention"],
         "launches_recovery": recovery_launches["flash_attention"],
+        "launches_transports": {k: v["launches"]["flash_attention"]
+                                for k, v in transports.items()},
         "shape": (f"B={Bs} S={S} Hq={g['Hq']} Hkv={g['Hkv']} D={g['D']} bf16 "
                   f"causal window=0 cap={g['cap']} (serve global layer)"),
         "max_abs_err": worst["serve_shape"],
@@ -1459,6 +1794,8 @@ def main() -> None:
         "launches": intransit_stats["int8-block"]["launches"],
         "launches_train": train_launches["staging_pack"],
         "launches_recovery": recovery_launches["staging_pack"],
+        "launches_transports": {k: v["launches"]["staging_pack"]
+                                for k, v in transports.items()},
         "shape": (f"{mesh_n} f32 values ({MESH['nx']}x{MESH['ny']}x{MESH['nz']} mesh) "
                   f"as ({nb_mesh * PACK_TILE[0]}, {PACK_TILE[1]}), tile {PACK_TILE}, "
                   f"int8 out (every in-transit step with codec int8-block)"),
@@ -1476,7 +1813,13 @@ def main() -> None:
         "library_call_retile": "x.view(ni,TR,nj,TC).permute(0,2,1,3).reshape(ni*nj,-1).clone()",
         "ms_normal_values": pack_normal_ms,
         "subnormal_share": subnormal_share,
-    }], "serve": serve_stats, "intransit": intransit_stats, "train": train_stats}
+    }], "serve": serve_stats, "intransit": intransit_stats, "train": train_stats,
+        "transports": {k: {m: v[m] for m in ("raw_mb_per_s", "stage_ms_median", "run_s",
+                                             "launches", "codec", "replays",
+                                             "resent_stripes", "fired", "seconds",
+                                             "loss_first", "loss_last", "diag_rows",
+                                             "staging") if m in v}
+                       for k, v in transports.items()}}
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary), flush=True)
     print(card, flush=True)

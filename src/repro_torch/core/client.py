@@ -36,20 +36,26 @@ Buf = Union[np.ndarray, bytes, bytearray, memoryview]
 class Communicator:
     """Manages the task queue + I/O thread pool (not user-facing).
 
-    The port's copy carries the reference's block path only: striped
-    channels (``n_channels > 1``), coalescing (``coalesce_bytes > 0``) and
-    the gateway's redirect protocol (``gateway=True``) come with a later
-    slice of the port, and asking for them raises ``ValueError``.
+    With ``n_channels > 1`` each dataset is striped across a shared
+    :class:`~repro_torch.transport.channels.ChannelGroup` (concurrent
+    connections + credit-based flow control) instead of the single
+    per-thread connection; the FCFS queue/sync semantics are unchanged —
+    only the per-dataset data plane widens.
 
+    Two small-regime levers (DESIGN.md §10), both off by default:
     ``wire_format="bin1"`` negotiates the struct-packed fast path per
     connection (per-block ``reg_block``/ack frames skip JSON and ride
-    single ``sendmsg`` calls; DESIGN.md §10).
+    single ``sendmsg`` calls); ``coalesce_bytes > 0`` routes datasets
+    below the threshold through a :class:`~repro_torch.transport.coalesce.
+    Coalescer` that packs them into one ``batch_open`` + ``batch_write``
+    round-trip instead of 2+ control RTTs each.
 
     ``submit`` takes a torch tensor as well as a host buffer. With a codec
     that encodes tensors where they lie (int8-block) the tensor reaches
     the central encode as it is, so a CUDA tensor is quantized on the card
     and only the reduced bytes cross to the host; otherwise it is copied
-    to the host first, as the reference's ``np.asarray`` does.
+    to the host first, as the reference's ``np.asarray`` does. Everything
+    after the encode (coalescer, stripes, gateway) sees host bytes.
     """
 
     def __init__(self, addr: str, io_threads: int, block_size: int,
@@ -60,14 +66,6 @@ class Communicator:
                  gateway: bool = False, tenant: Optional[str] = None,
                  codec: str = "none", decode_at: str = "staging",
                  retry: int = 3, deadline_s: Optional[float] = None):
-        for asked, what in ((n_channels > 1, f"n_channels={n_channels}"),
-                            (coalesce_bytes > 0,
-                             f"coalesce_bytes={coalesce_bytes}"),
-                            (gateway, "gateway=True")):
-            if asked:
-                raise ValueError(
-                    f"{what}: striped channels, coalescing and the staging "
-                    "gateway come with a later slice of the port")
         if wire_format not in wire.SUPPORTED_WIRE:
             raise ValueError(f"unknown wire_format {wire_format!r}; "
                              f"supported: {', '.join(wire.SUPPORTED_WIRE)}")
@@ -81,9 +79,10 @@ class Communicator:
         # backoff + full jitter, optional per-write deadline budget
         self._retry = RetryPolicy(retries=retry, deadline_s=deadline_s)
         # egress reduction codec (DESIGN.md §13): encode happens centrally
-        # in submit(). The codec only activates once the peer advertised it
-        # in the hello handshake (_codec_active); against an old server we
-        # silently fall back to raw bytes.
+        # in submit() so the block, coalesced and striped paths all ship
+        # the same reduced bytes. The codec only activates once the peer
+        # advertised it in the hello handshake (_codec_active); against an
+        # old server we silently fall back to raw bytes.
         self._codec = None
         self._decode_at = decode_at
         if codec != "none":
@@ -93,9 +92,37 @@ class Communicator:
         self._codec_ok: Optional[bool] = None
         self._codec_counts = {"raw_bytes": 0, "wire_bytes": 0,
                               "encode_s": 0.0, "datasets": 0, "fallbacks": 0}
+        self._pool = None
         self._socks = wire.ConnCache()   # one conn (≈ RC QP) per I/O thread
-        self._pool = FCFSPool(io_threads, "libstaging-io",
-                              straggler_timeout=straggler_timeout)
+        self._channels = None
+        self._coalescer = None
+        self._gateway = None
+        if gateway:
+            # redirect protocol (DESIGN.md §12): one control RTT per
+            # dataset resolves placement + tenancy; data goes straight
+            # to the admitted backend, never through the gateway
+            from repro_torch.gateway.client import GatewayClient
+            self._gateway = GatewayClient(addr, tenant=tenant)
+        if coalesce_bytes > 0:
+            # imported lazily: repro_torch.transport imports this module
+            from repro_torch.transport.coalesce import Coalescer
+            self._coalescer = Coalescer(self._flush_batch, coalesce_bytes,
+                                        linger_ms=linger_ms)
+        self._channel_opts = {"n_channels": n_channels,
+                              "stripe_bytes": stripe_bytes or block_size,
+                              "credits": credits, "wire_format": wire_format,
+                              "retry": self._retry}
+        self._groups: dict[str, object] = {}   # backend addr -> ChannelGroup
+        self._groups_lock = threading.Lock()
+        if n_channels > 1:
+            # striped mode bypasses the I/O pool entirely — don't start
+            # worker threads that would only ever idle. Behind a gateway
+            # the groups open lazily per admitted backend instead.
+            if not gateway:
+                self._channels = self._group_for(addr)
+        else:
+            self._pool = FCFSPool(io_threads, "libstaging-io",
+                                  straggler_timeout=straggler_timeout)
 
     def _connect(self, addr: str):
         sock = wire.connect(addr)
@@ -112,6 +139,17 @@ class Communicator:
     def _conn(self, addr: Optional[str] = None):
         return self._socks.get(addr or self.addr, factory=self._connect)
 
+    def _group_for(self, addr: str):
+        """Get-or-open the striped ChannelGroup bound to ``addr`` (one
+        per backend when a gateway spreads datasets across a pool)."""
+        with self._groups_lock:
+            grp = self._groups.get(addr)
+            if grp is None:
+                from repro_torch.transport.channels import ChannelGroup
+                grp = ChannelGroup(addr, **self._channel_opts).open()
+                self._groups[addr] = grp
+            return grp
+
     def _request(self, header: dict, payload=None,
                  addr: Optional[str] = None) -> dict:
         h, _ = wire.request(self._conn(addr), header, payload)
@@ -124,9 +162,9 @@ class Communicator:
     def _codec_active(self) -> bool:
         """True once the peer has accepted our codec in a hello handshake.
 
-        Probed lazily on the main address; a peer that never advertised
-        the codec leaves the sender on raw bytes — recorded as a fallback,
-        not an error."""
+        Probed lazily on the main address (the gateway answers for its
+        whole pool); a peer that never advertised the codec leaves the
+        sender on raw bytes — recorded as a fallback, not an error."""
         if self._codec is None:
             return False
         if self._codec_ok is None:
@@ -171,31 +209,37 @@ class Communicator:
 
     # -- the transfer task (runs on an I/O thread) -----------------------
     def _send(self, name: str, dtype: str, buf: np.ndarray,
-              cinfo: Optional[dict] = None,
+              addr: Optional[str] = None, cinfo: Optional[dict] = None,
               epoch: Optional[str] = None) -> int:
         """Block-path transfer with connection-level retry: a broken conn
         is dropped from the cache, the write restarts from ``write_req``
         after a jittered backoff (the epoch makes the restart idempotent —
         a server that already finished this epoch just acks ``dup``)."""
         for attempt in self._retry.attempts(f"write {name!r}"):
+            tgt = addr
             try:
-                return self._send_once(name, dtype, buf, cinfo, epoch)
+                if tgt is None and self._gateway is not None:
+                    # re-admit on every attempt: after a backend fail-out
+                    # the gateway routes the retry onto the rebuilt ring
+                    tgt = self._gateway.admit(name, buf.nbytes, epoch=epoch)
+                return self._send_once(name, dtype, buf, tgt, cinfo, epoch)
             except (ConnectionError, TimeoutError, OSError) as e:
-                self._socks.invalidate(self.addr)
+                self._socks.invalidate(tgt or self.addr)
                 attempt.backoff(e)   # raises RetryExhausted when spent
 
     def _send_once(self, name: str, dtype: str, buf: np.ndarray,
-                   cinfo: Optional[dict], epoch: Optional[str]) -> int:
+                   addr: Optional[str], cinfo: Optional[dict],
+                   epoch: Optional[str]) -> int:
         nbytes = buf.nbytes
         # NB: "nbytes" is reserved by the wire framing; use "size"
         req = dict({"op": "write_req", "name": name,
                     "dtype": dtype, "size": nbytes}, **(cinfo or {}))
         if epoch is not None:
             req["epoch"] = epoch
-        h = self._request(req)
+        h = self._request(req, addr=addr)
         if h.get("dup"):
             return nbytes     # server already holds this epoch in full
-        conn = self._conn()
+        conn = self._conn(addr)
         use_bin = wire.negotiated(conn) == wire.WIRE_BIN1
         writer = writer_for_reply(h, nbytes)
         try:
@@ -211,21 +255,73 @@ class Communicator:
                         raise RuntimeError(
                             f"staging error: {grant.get('error')}")
                 else:
-                    grant = self._request(hdr)
+                    grant = self._request(hdr, addr=addr)
                 # ...then one-sided RDMA write, no server CPU involved
                 writer.write(grant["offset"], flat[off:off + size],
                              grant["rkey"])
             # two-sided sync message: no more remote ops on this MR
-            self._request({"op": "client_sync", "file_id": h["file_id"]})
+            self._request({"op": "client_sync", "file_id": h["file_id"]},
+                          addr=addr)
         finally:
             writer.close()
         return nbytes
+
+    # -- the coalesced batch flush (runs on the coalescer worker) --------
+    def _flush_one_batch(self, addr: str, items) -> None:
+        """Pipelined ``batch_open`` + ``batch_write`` against one server,
+        pushed in a single vectored ``sendmsg`` — nothing is concatenated
+        in user space, the payload iovec list is the item buffers.
+
+        A broken connection is dropped from the cache before the error
+        propagates (the batch's items then replay one by one): the
+        reference keeps it, so every later batch fails on the dead socket
+        and is replayed too."""
+        try:
+            self._flush_batch_frames(self._conn(addr), items)
+        except (ConnectionError, OSError):
+            self._socks.invalidate(addr)
+            raise
+
+    def _flush_batch_frames(self, sock, items) -> None:
+        open_hdr = {"op": "batch_open",
+                    "items": [dict({"name": it.name, "dtype": it.dtype,
+                                    "size": it.nbytes}, **(it.extra or {}))
+                              for it in items]}
+        write_hdr = {"op": "batch_write", "count": len(items)}
+        payload = [it.buf for it in items if it.nbytes]
+        wire.send_frames_vectored(
+            sock, [(open_hdr, None), (write_hdr, payload)],
+            fmt=wire.negotiated(sock))
+        oh, _ = wire.recv_frame(sock)
+        wh, _ = wire.recv_frame(sock)
+        if not oh.get("ok"):
+            raise RuntimeError(f"batch_open failed: {oh.get('error')}")
+        if not wh.get("ok"):
+            raise RuntimeError(f"batch_write failed: {wh.get('error')}")
+
+    def _flush_batch(self, items) -> None:
+        """One round-trip for N small datasets (two behind a gateway:
+        ``admit_batch`` resolves tenancy + placement for the whole batch
+        first, then one vectored flush per admitted backend)."""
+        if self._gateway is None:
+            self._flush_one_batch(self.addr, items)
+            return
+        # all-or-nothing admission: a quota rejection fails every item's
+        # future before any backend sees a byte
+        addrs = self._gateway.admit_batch([(it.name, it.nbytes)
+                                           for it in items])
+        by_addr: dict[str, list] = {}
+        for addr, it in zip(addrs, items):
+            by_addr.setdefault(addr, []).append(it)
+        for addr, group in by_addr.items():
+            self._flush_one_batch(addr, group)
 
     def submit(self, name: str, dtype: str, buf,
                epoch: Optional[str] = None,
                replay: bool = False) -> TaskHandle:
         """Encode (when a codec is active) and queue one dataset. ``buf`` is
-        a host buffer or a torch tensor on any device."""
+        a host buffer or a torch tensor on any device; a replay encodes a
+        tensor again."""
         cinfo = None
         active = self._codec_active()
         if isinstance(buf, torch.Tensor) and not (
@@ -238,21 +334,79 @@ class Communicator:
                 # self-contained (base=None), whatever landed before
                 with self._codec_lock:
                     self._codec.reset(name)
-            # one central encode; downstream decisions see the *wire* size
-            # — that is the point of reducing first
+            # one central encode feeds all three egress paths; downstream
+            # decisions (coalescing threshold, striping plan) see the
+            # *wire* size — that is the point of reducing first
             buf, cinfo = self._encode(name, dtype, buf)
-        return self._pool.submit(self._send, name, dtype, buf, cinfo,
+        if not replay and self._coalescer is not None and \
+                buf.nbytes < self._coalescer.coalesce_bytes:
+            # replays skip the coalescer: recovery wants the write on the
+            # wire now, with its epoch checked individually, not parked
+            # behind a linger window in a batch that could fail as a unit
+            extra = cinfo if epoch is None else dict(cinfo or {},
+                                                     epoch=epoch)
+            flat = buf.reshape(-1).view(np.uint8)
+            return self._coalescer.add(name, dtype, flat, buf.nbytes,
+                                       extra=extra)
+        if self._channel_opts["n_channels"] > 1:
+            # striped mode bypasses the I/O pool entirely: stripes are
+            # enqueued onto the channels right away and datasets pipeline
+            # back-to-back (no per-dataset drain between transfers); the
+            # ack-driven completion feeds the same TaskHandle contract
+            h = TaskHandle(self._send, (name, dtype, buf),
+                           name=f"write-{name}")
+            h.started_at = time.perf_counter()
+            h.attempts = 1
+            if self._gateway is not None:
+                try:
+                    group = self._group_for(
+                        self._gateway.admit(name, buf.nbytes, epoch=epoch))
+                except Exception as e:  # noqa: BLE001 — typed quota/auth
+                    h.complete(error=e)
+                    return h
+            else:
+                group = self._channels
+            try:
+                tr = group.submit_dataset(name, dtype, buf,
+                                          codec_info=cinfo, epoch=epoch)
+            except (ConnectionError, OSError) as e:
+                h.complete(error=e)      # RetryExhausted after reopens
+                return h
+            tr.add_done_callback(
+                lambda t, h=h: h.complete(result=t.nbytes)
+                if t.error is None else h.complete(error=t.error))
+            return h
+        return self._pool.submit(self._send, name, dtype, buf, None, cinfo,
                                  epoch, name=f"write-{name}")
 
+    def _all_groups(self) -> list:
+        with self._groups_lock:
+            return list(self._groups.values())
+
     def sync(self, timeout: Optional[float] = None) -> None:
-        self._pool.sync(timeout)
+        if self._coalescer is not None:
+            self._coalescer.sync(timeout)
+        for grp in self._all_groups():
+            grp.sync(timeout)
+        if self._pool is not None:
+            self._pool.sync(timeout)
 
     def stop(self) -> None:
-        self._pool.stop()                # joins in-flight transfers first
+        if self._coalescer is not None:
+            self._coalescer.close()      # flushes buffered small datasets
+        if self._pool is not None:
+            self._pool.stop()            # joins in-flight transfers first
         self._socks.close_all()          # per-thread QPs die with the pool
+        for grp in self._all_groups():
+            grp.close()                  # drains in-flight stripes first
+        if self._gateway is not None:
+            self._gateway.close()
 
     def channel_stats(self) -> list[dict]:
-        return []
+        out: list[dict] = []
+        for grp in self._all_groups():
+            out.extend(grp.channel_stats())
+        return out
 
 
 class StagingClient:

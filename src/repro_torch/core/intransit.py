@@ -36,8 +36,6 @@ from repro_torch.tensors import dtype_name, host_array
 from repro_torch.transport import TransferSession, TransportConfig
 
 MAX_STEPS = 1_000_000  # upper bound of the `step` dimension in DDL
-# the reference's transports that the port does not carry yet
-LATER_TRANSPORTS = ("scp_mem", "scp_disk", "ssh_direct")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,17 +99,13 @@ class InTransitSink:
     """Asynchronous egress of named arrays into SAVIME via a
     :class:`~repro_torch.transport.TransferSession`.
 
-    ``addr`` is the staging server for the default ``rdma_staged``
-    transport, or the SAVIME address for another registered engine. The
-    reference's copy-emulation baselines (``scp_mem``, ``scp_disk``,
-    ``ssh_direct``) come with a later slice of the port and raise here.
+    ``addr`` is the staging server (or, with ``gateway=True``, the staging
+    gateway) for the default ``rdma_staged`` transport, or the SAVIME
+    address for the copy-emulation transports (``cfg.transport`` names any
+    registered engine).
     """
 
     def __init__(self, addr: str, cfg: InTransitConfig = InTransitConfig()):
-        if cfg.transport in LATER_TRANSPORTS:
-            raise ValueError(
-                f"transport {cfg.transport!r}: the copy-emulation baselines "
-                "come with a later slice of the port; use rdma_staged")
         self.cfg = cfg
         staged = cfg.transport == "rdma_staged"
         gateway = staged and cfg.gateway
@@ -166,8 +160,10 @@ class InTransitSink:
     def stage_array(self, name: str, arr: Any, step: int = 0) -> None:
         """Non-blocking: host copy + enqueue. `arr` is a torch tensor or a
         numpy array; the write itself happens on libstaging I/O threads. A
-        CUDA float tensor staged with ``codec="int8-block"`` stays on the
-        card: the codec packs it there. Anything else is copied to the host
+        CUDA float tensor staged with ``codec="int8-block"`` through
+        ``rdma_staged`` (the transport that carries the codec) stays on the
+        card: the codec packs it there. Anything else, a copy baseline's
+        tensor included, is copied to the host
         here, where the reference calls ``np.asarray``; a bfloat16 tensor
         becomes its bits (``repro_torch.tensors``), staged as "bfloat16" and
         never quantized by ``quantize="int8"``, as the reference's numpy
@@ -185,6 +181,7 @@ class InTransitSink:
         on_card = (isinstance(arr, torch.Tensor) and arr.is_cuda
                    and arr.is_floating_point()
                    and self.cfg.codec == "int8-block"
+                   and self.cfg.transport == "rdma_staged"
                    and self.cfg.quantize != "int8")
         x = arr if on_card else host_array(arr)
         shape = tuple(x.shape)

@@ -54,7 +54,7 @@ def _parse_call(q: str) -> tuple[str, list[str]]:
 class SavimeEngine:
     """In-process engine (the TCP server wraps this)."""
 
-    # enforced by `python -m repro_torch.lint` (DESIGN.md §14); _lock is an
+    # enforced by `python -m repro.lint` (DESIGN.md §14); _lock is an
     # RLock so query handlers can nest under run()
     _GUARDED_BY = {
         "tars": "_lock",

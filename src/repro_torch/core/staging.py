@@ -88,7 +88,7 @@ class _Dataset:
 
 
 class StagingServer:
-    # lock->attribute protection map, enforced by `python -m repro_torch.lint`
+    # lock->attribute protection map, enforced by `python -m repro.lint`
     # (DESIGN.md §14).  The plain-counter `stats` dict is deliberately
     # unguarded: increments are best-effort telemetry and the `stats` op
     # snapshots the authoritative watermarks under their own locks.

@@ -3,8 +3,8 @@
 Prefill a batch of prompts, then decode greedily (or by sampling at a
 temperature) with the KV cache updated in place. Optionally stages
 per-step decode latencies in transit (SAVIME) like a real fleet would.
-The port of ``repro/launch/serve.py`` without its mesh flag, striped
-channels, coalescing, staging pool and fault plans.
+The port of ``repro/launch/serve.py``, with ``--device`` (CUDA unless the
+CPU is asked for); ``--mesh`` takes 1x1 only (one device).
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from typing import Any, Callable, ContextManager, Optional
 import numpy as np
 import torch
 
-from repro_torch import analysis
+from repro_torch import analysis, transport
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -107,10 +107,25 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
             "prompts": prompts}
 
 
+def _pool_tenancy(args):
+    """The pool's tenants and default quota, and the token the sink writes
+    with, from ``--tenant NAME[:TOKEN]`` and ``--quota-mb`` (the
+    reference's wiring)."""
+    from repro_torch.gateway import Tenant
+    quota = (args.quota_mb << 20) or None
+    if not args.tenant:
+        return (), quota, None
+    name, _, token = args.tenant.partition(":")
+    return (Tenant(name, token=token or None, quota_bytes=quota),), None, \
+        token or name
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--mesh", default="1x1",
+                    help="only 1x1: the port serves on one device")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--new-tokens", type=int, default=32)
@@ -120,13 +135,18 @@ def main(argv=None) -> None:
     ap.add_argument("--intransit", action="store_true",
                     help="stage per-step latencies into SAVIME")
     ap.add_argument("--transport", default="rdma_staged",
-                    choices=["rdma_staged"],
-                    help="egress engine for the in-transit sink (the "
-                         "copy-emulation baselines come with a later slice)")
+                    choices=transport.available(),
+                    help="egress engine for the in-transit sink")
+    ap.add_argument("--channels", type=int, default=1,
+                    help="stripe egress across N concurrent connections "
+                         "with credit-based flow control (1 = off)")
     ap.add_argument("--wire-format", default="json",
                     choices=["json", "bin1"],
                     help="negotiate the struct-packed binary fast path "
                          "for hot data frames (falls back to json)")
+    ap.add_argument("--coalesce-kb", type=int, default=0,
+                    help="coalesce datasets below this size into jumbo "
+                         "batched frames (KiB, 0 = off)")
     ap.add_argument("--page-kb", type=int, default=0,
                     help="run staging on the paged store with this page "
                          "size (KiB, 0 = flat regions); cold pages spill "
@@ -149,9 +169,30 @@ def main(argv=None) -> None:
                     choices=analysis.analyzers.available(),
                     help="summarize staged decode latencies with a "
                          "registered analyzer (needs --intransit)")
+    ap.add_argument("--pool", type=int, default=0,
+                    help="run N staging backends behind one gateway "
+                         "(DESIGN.md §12; 0 = single staging server)")
+    ap.add_argument("--tenant", default=None, metavar="NAME[:TOKEN]",
+                    help="gateway tenant to write as (needs --pool); "
+                         "NAME:TOKEN registers the tenant with that token")
+    ap.add_argument("--quota-mb", type=int, default=0,
+                    help="per-tenant byte quota in MiB (needs --pool; "
+                         "0 = unlimited)")
+    ap.add_argument("--faults", default=None,
+                    help="seeded fault plan for the staging path — a DSL "
+                         "string ('seed=42;drop:op=stripe,prob=0.01;"
+                         "kill:target=staging:0,at_s=0.5') or a JSON plan "
+                         "file; exercises retry/replay (DESIGN.md §15)")
     args = ap.parse_args(argv)
+    if args.mesh != "1x1":
+        ap.error(f"--mesh {args.mesh}: the port serves on one device; "
+                 "meshes come with the multi-device slice")
     if args.analyzer and not args.intransit:
         ap.error("--analyzer requires --intransit")
+    if (args.tenant or args.quota_mb) and not args.pool:
+        ap.error("--tenant/--quota-mb require --pool")
+    if args.pool and args.transport != "rdma_staged":
+        ap.error("--pool requires the rdma_staged transport")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
@@ -163,22 +204,64 @@ def main(argv=None) -> None:
 
     from repro_torch.core import (InTransitConfig, InTransitSink,
                                   SavimeServer, StagingServer)
-    savime = SavimeServer().start()
-    staging = StagingServer(savime.addr, page_bytes=args.page_kb << 10,
-                            spill_dir=args.spill_dir, dedup=args.dedup).start()
-    try:
-        sink = InTransitSink(staging.addr, InTransitConfig(
+    staging_kw = {"page_bytes": args.page_kb << 10,
+                  "spill_dir": args.spill_dir, "dedup": args.dedup}
+    with contextlib.ExitStack() as stack:
+        tenant_token = pool = savime = None
+        if args.pool:
+            from repro_torch.gateway import StagingPool
+            tenants, default_quota, tenant_token = _pool_tenancy(args)
+            pool = StagingPool(args.pool, tenants=tenants,
+                               default_quota_bytes=default_quota,
+                               staging_kwargs=staging_kw).start()
+            stack.callback(pool.stop)
+            sink_addr = pool.addr
+            print(f"[serve] staging pool: {args.pool} backends behind "
+                  f"gateway {pool.addr}")
+            scope = [pool.addr] + [st.addr for st in pool.stagings] \
+                + [sv.addr for sv in pool.savimes]
+            targets = {"gateway": pool.gateway.stop}
+            targets.update({f"staging:{i}": st.stop
+                            for i, st in enumerate(pool.stagings)})
+            targets.update({f"savime:{i}": sv.stop
+                            for i, sv in enumerate(pool.savimes)})
+        else:
+            savime = SavimeServer().start()
+            stack.callback(savime.stop)
+            staging = StagingServer(savime.addr, **staging_kw).start()
+            stack.callback(staging.stop)
+            sink_addr = (staging.addr if args.transport == "rdma_staged"
+                         else savime.addr)
+            scope = [staging.addr, savime.addr]
+            targets = {"staging:0": staging.stop, "savime:0": savime.stop}
+        if args.faults:
+            from repro_torch.faults import (FaultPlan, FaultScheduler,
+                                            install, uninstall)
+            plan = FaultPlan.parse(args.faults)
+            install(plan, scope=scope)
+            stack.callback(uninstall)
+            stack.callback(FaultScheduler(plan, targets).start().stop)
+            print(f"[serve] fault plan armed (seed={plan.seed}, "
+                  f"{len(plan.rules)} rule(s))")
+        sink = InTransitSink(sink_addr, InTransitConfig(
             tar_prefix="serve", transport=args.transport,
-            wire_format=args.wire_format, page_bytes=args.page_kb << 10,
-            spill_dir=args.spill_dir, dedup=args.dedup, codec=args.codec,
-            decode_at=args.decode_at))
+            n_channels=args.channels, wire_format=args.wire_format,
+            coalesce_bytes=args.coalesce_kb << 10,
+            page_bytes=args.page_kb << 10, spill_dir=args.spill_dir,
+            dedup=args.dedup, gateway=bool(args.pool), tenant=tenant_token,
+            codec=args.codec, decode_at=args.decode_at))
         try:
             serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
                   new_tokens=args.new_tokens, temperature=args.temperature,
                   device=args.device, sink=sink)
             sink.flush()
             if args.analyzer:
-                with analysis.AnalysisSession(savime.addr) as an:
+                if pool is not None:
+                    from repro_torch.gateway import RouterSession
+                    an_ctx = RouterSession(gateway_addr=pool.addr)
+                else:
+                    an_ctx = analysis.AnalysisSession(savime.addr)
+                with an_ctx as an:
                     res = an.execute(
                         analysis.tar("serve_decode_ms").attr("v").select())
                     a = analysis.analyzers.create(args.analyzer)
@@ -188,9 +271,11 @@ def main(argv=None) -> None:
                           f"{res.shape} staged latencies: {s.payload}")
         finally:
             sink.close()
-    finally:
-        staging.stop()
-        savime.stop()
+        gw = sink.session.stats.gateway
+        if gw:
+            print(f"[serve] gateway: {gw['totals']} across "
+                  f"{gw['live_backends']}/{gw['n_backends']} backends; "
+                  f"tenants: {gw['tenants']}")
 
 
 if __name__ == "__main__":

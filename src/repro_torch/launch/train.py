@@ -10,23 +10,21 @@ their scales) is staged into SAVIME as the step ends, as
 ``examples/train_with_intransit.py`` stages it, and so is each checkpoint.
 
 The port of ``repro/launch/train.py``, with ``--device`` (CUDA unless the
-CPU is asked for). The flags of what a later slice brings raise: a mesh
-other than 1x1, striped channels, coalescing, fault plans, the
-copy-emulation transports and the compressed cross-pod reduction.
+CPU is asked for). The multi-device flags raise: a mesh other than 1x1 and
+the compressed cross-pod reduction.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import tempfile
 import time
-from typing import Optional
 
 import numpy as np
 
-from repro_torch import analysis
+from repro_torch import analysis, transport
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
-from repro_torch.core.intransit import LATER_TRANSPORTS
 from repro_torch.data import DataConfig, SyntheticLM, batch_to_device
 from repro_torch.device import resolve_device
 from repro_torch.models import Model
@@ -50,23 +48,13 @@ def stage_egress(sink, egress: dict, step: int) -> dict:
     return staged
 
 
-def _reject_later_flags(ap: argparse.ArgumentParser, args) -> None:
-    later = [(args.mesh != "1x1", f"--mesh {args.mesh}: the port runs on one "
-              "device; meshes come with the multi-device slice"),
-             (args.channels > 1, f"--channels {args.channels}: striped "
-              "channels come with a later slice of the port"),
-             (args.coalesce_kb > 0, "--coalesce-kb: coalescing comes with a "
-              "later slice of the port"),
-             (args.faults is not None, "--faults: fault plans come with a "
-              "later slice of the port"),
-             (args.transport in LATER_TRANSPORTS, f"--transport "
-              f"{args.transport}: the copy-emulation baselines come with a "
-              "later slice of the port"),
-             (args.compress_pods, "--compress-pods: the cross-pod reduction "
-              "comes with the multi-device slice")]
-    for asked, why in later:
-        if asked:
-            ap.error(why)
+def _reject_multi_device(ap: argparse.ArgumentParser, args) -> None:
+    if args.mesh != "1x1":
+        ap.error(f"--mesh {args.mesh}: the port runs on one device; meshes "
+                 "come with the multi-device slice")
+    if args.compress_pods:
+        ap.error("--compress-pods: the cross-pod reduction comes with the "
+                 "multi-device slice")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -88,17 +76,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--intransit", action="store_true",
                     help="stage per-step egress and checkpoints into SAVIME")
     ap.add_argument("--transport", default="rdma_staged",
-                    choices=["rdma_staged", *LATER_TRANSPORTS],
-                    help="egress engine for the in-transit sink (the "
-                         "copy-emulation baselines come with a later slice)")
+                    choices=transport.available(),
+                    help="egress engine for the in-transit sink")
     ap.add_argument("--channels", type=int, default=1,
-                    help="striped egress connections (a later slice: 1 only)")
+                    help="stripe egress across N concurrent connections "
+                         "with credit-based flow control (1 = off)")
     ap.add_argument("--wire-format", default="json",
                     choices=["json", "bin1"],
                     help="negotiate the struct-packed binary fast path "
                          "for hot data frames (falls back to json)")
     ap.add_argument("--coalesce-kb", type=int, default=0,
-                    help="coalesce small datasets (a later slice: 0 only)")
+                    help="coalesce datasets below this size into jumbo "
+                         "batched frames (KiB, 0 = off)")
     ap.add_argument("--page-kb", type=int, default=0,
                     help="run staging on the paged store with this page "
                          "size (KiB, 0 = flat regions); cold pages spill "
@@ -123,15 +112,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--egress", default="diag",
                     choices=["none", "diag", "grads_int8"])
     ap.add_argument("--faults", default=None,
-                    help="seeded fault plan for the staging path (a later "
-                         "slice of the port)")
+                    help="seeded fault plan for the staging path — a DSL "
+                         "string ('seed=42;drop:op=stripe,prob=0.01;"
+                         "kill:target=staging:0,at_s=0.5') or a JSON plan "
+                         "file; exercises retry/replay (DESIGN.md §15)")
     return ap
 
 
 def train(args, log=print) -> dict:
     """Run the launcher's training. Returns the supervisor's metrics log,
-    the staged diagnostics SAVIME holds (with ``--intransit``) and the
-    run's seconds."""
+    its restarts and the run's seconds; with ``--intransit`` also the
+    staged diagnostics SAVIME holds (unless ``--egress none``), the
+    session's transfer stats and the staging server's counters."""
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -143,25 +135,48 @@ def train(args, log=print) -> dict:
         total_steps=args.steps, egress=args.egress))
     state = setup.init_state(0, dev)
 
-    sink = savime = staging = None
-    if args.intransit:
-        from repro_torch.core import (InTransitConfig, InTransitSink,
-                                      SavimeServer, StagingServer)
-        savime = SavimeServer().start()
-        staging = StagingServer(savime.addr, page_bytes=args.page_kb << 10,
-                                spill_dir=args.spill_dir,
-                                dedup=args.dedup).start()
-        sink = InTransitSink(staging.addr, InTransitConfig(
-            io_threads=2, tar_prefix="train", transport=args.transport,
-            wire_format=args.wire_format, page_bytes=args.page_kb << 10,
-            spill_dir=args.spill_dir, dedup=args.dedup, codec=args.codec,
-            decode_at=args.decode_at))
-        log(f"[train] in-transit sink --{args.transport}({args.wire_format} "
-            f"wire{f', codec={args.codec}' if args.codec != 'none' else ''})"
-            f"--> SAVIME {savime.addr}")
-    ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro-torch-ckpt-")
-    ckpt = CheckpointManager(ckpt_dir, sink=sink)
-    try:
+    with contextlib.ExitStack() as stack:
+        sink = savime = staging = None
+        if args.intransit:
+            from repro_torch.core import (InTransitConfig, InTransitSink,
+                                          SavimeServer, StagingServer)
+            savime = SavimeServer().start()
+            stack.callback(savime.stop)
+            staging = StagingServer(savime.addr,
+                                    page_bytes=args.page_kb << 10,
+                                    spill_dir=args.spill_dir,
+                                    dedup=args.dedup).start()
+            stack.callback(staging.stop)
+            if args.faults:
+                from repro_torch.faults import (FaultPlan, FaultScheduler,
+                                                install, uninstall)
+                plan = FaultPlan.parse(args.faults)
+                install(plan, scope=[staging.addr, savime.addr])
+                stack.callback(uninstall)
+                stack.callback(FaultScheduler(plan, {
+                    "staging:0": staging.stop,
+                    "savime:0": savime.stop}).start().stop)
+                log(f"[train] fault plan armed (seed={plan.seed}, "
+                    f"{len(plan.rules)} rule(s))")
+            # the staged path attaches to staging; copy-emulation transports
+            # (scp_*, ssh_direct) reach SAVIME directly, as the baselines do
+            sink_addr = (staging.addr if args.transport == "rdma_staged"
+                         else savime.addr)
+            sink = InTransitSink(sink_addr, InTransitConfig(
+                io_threads=2, tar_prefix="train", transport=args.transport,
+                n_channels=args.channels, wire_format=args.wire_format,
+                coalesce_bytes=args.coalesce_kb << 10,
+                page_bytes=args.page_kb << 10, spill_dir=args.spill_dir,
+                dedup=args.dedup, codec=args.codec, decode_at=args.decode_at))
+            stack.callback(sink.close)
+            log(f"[train] in-transit sink --{args.transport}"
+                f"(x{args.channels} channels, {args.wire_format} wire"
+                f"{', coalescing' if args.coalesce_kb else ''}"
+                f"{f', codec={args.codec}' if args.codec != 'none' else ''})"
+                f"--> SAVIME {savime.addr}")
+        ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro-torch-ckpt-")
+        ckpt = CheckpointManager(ckpt_dir, sink=sink)
+        stack.callback(ckpt.close)
         step_fn = setup.step_fn()
 
         def step(state, batch):
@@ -183,31 +198,31 @@ def train(args, log=print) -> dict:
             f"({dt / max(args.steps, 1) * 1e3:.0f} ms/step) "
             f"loss {losses[0]:.3f} -> {losses[-1]:.3f}; "
             f"restarts={sup.restarts}; checkpoints in {ckpt_dir}")
-        diag: Optional[np.ndarray] = None
-        if sink is not None and args.egress != "none":
+        out = {"metrics": sup.metrics_log, "restarts": sup.restarts,
+               "diag": None, "seconds": dt}
+        if sink is not None:
             sink.flush()
+        if sink is not None and args.egress != "none":
             with analysis.AnalysisSession(savime.addr) as an:
-                diag = an.execute(analysis.tar("train_diag").attr("v")
-                                  .select()).array
+                out["diag"] = an.execute(analysis.tar("train_diag").attr("v")
+                                         .select()).array
             log(f"[train] staged {sink.staged_arrays} arrays, "
                 f"{sink.staged_bytes / 1e6:.1f} MB into SAVIME; it holds "
-                f"{diag.shape[0]} step diagnostics, last loss "
-                f"{diag[-1, 0]:.3f}")
-        return {"metrics": sup.metrics_log, "restarts": sup.restarts,
-                "diag": diag, "seconds": dt}
-    finally:
-        ckpt.close()
-        if sink is not None:
-            sink.close()
-            staging.stop()
-            savime.stop()
+                f"{out['diag'].shape[0]} step diagnostics, last loss "
+                f"{out['diag'][-1, 0]:.3f}")
+    if sink is not None:
+        # read once every server has stopped: the session's close collects
+        # its channel stats
+        out["transfer"] = sink.session.stats.as_dict()
+        out["staging"] = dict(staging.stats)
+    return out
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
     ap = build_parser()
     args = ap.parse_args(argv)
-    _reject_later_flags(ap, args)
-    train(args)
+    _reject_multi_device(ap, args)
+    return train(args)
 
 
 if __name__ == "__main__":

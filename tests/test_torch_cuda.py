@@ -246,6 +246,109 @@ def test_sink_packs_a_cuda_tensor_on_the_card(cuda_device):
         sv.stop()
 
 
+def _stage_on_card(x, transport: str, spec: str = "", **cfg) -> dict:
+    """Stage the CUDA tensor ``x`` through the port's sink on ``transport``
+    with codec int8-block and read back what SAVIME holds; a fault plan
+    ``spec`` rides the port's wire meanwhile."""
+    from repro_torch.core import (InTransitConfig, InTransitSink,
+                                  SavimeServer, StagingServer)
+    from repro_torch.faults import FaultPlan, injected
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    sv = SavimeServer().start()
+    st = StagingServer(sv.addr, mem_capacity=64 << 20).start()
+    try:
+        with injected(FaultPlan.parse(spec), scope=[st.addr]) as inj:
+            sink = InTransitSink(st.addr if transport == "rdma_staged"
+                                 else sv.addr, InTransitConfig(
+                                     codec="int8-block", transport=transport,
+                                     **cfg))
+            try:
+                reset_launches()
+                sink.stage_array("x", x, step=0)
+                sink.flush(timeout=60)
+                launches = LAUNCHES["staging_pack"]
+            finally:
+                sink.close()
+        held = sv.engine.tars["run_x"].select("v")[0]
+    finally:
+        st.stop()
+        sv.stop()
+    stats = sink.session.stats
+    return {"held": held, "launches": launches, "codec": stats.codec,
+            "channels": stats.channels, "replays": stats.replays,
+            "fired": dict(inj.fired)}
+
+
+def _host_decode(x):
+    import numpy as np
+
+    from repro_torch.codec.int8block import Int8BlockCodec
+    codec = Int8BlockCodec()
+    return codec.decode(*codec.encode(x.cpu().numpy())).view(np.float32)
+
+
+@pytest.mark.cuda
+def test_striped_sink_packs_a_cuda_tensor_once(cuda_device):
+    """n_channels=2 with int8-block: one pack launch on the card, the
+    reduced bytes striped over both channels, and SAVIME holds the host
+    codec's decode byte for byte."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(64 * 4096 + 17, generator=g, device=cuda_device)
+    r = _stage_on_card(x, "rdma_staged", n_channels=2, stripe_bytes=64 << 10)
+    assert r["launches"] == 1 and r["codec"]["datasets"] == 1
+    assert r["codec"]["wire_bytes"] == x.numel() + 4 * 65
+    assert len(r["channels"]) == 2 and all(c["n_stripes"] > 0
+                                           for c in r["channels"])
+    assert r["held"].tobytes() == _host_decode(x).tobytes()
+
+
+@pytest.mark.cuda
+def test_copy_baseline_ships_a_cuda_tensor_raw(cuda_device):
+    """scp_mem with int8-block set: the tensor is copied to the host and
+    lands raw (the codec is inert on a baseline); no pack launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randn(64 * 4096 + 17, generator=g, device=cuda_device)
+    r = _stage_on_card(x, "scp_mem")
+    assert r["launches"] == 0 and r["codec"] == {}
+    assert r["held"].tobytes() == x.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_forced_replay_packs_the_cuda_tensor_again(cuda_device):
+    """A session with no per-write retries under drop:op=stripe_open,nth=1:
+    the write fails, the journal replays it, and the replay encodes the
+    CUDA tensor again: launches = 1 + replays = 2; SAVIME holds the host
+    codec's decode."""
+    import numpy as np
+
+    from repro_torch.core import SavimeServer, StagingServer
+    from repro_torch.faults import FaultPlan, injected
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.transport import TransferSession, TransportConfig
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn(64 * 4096 + 17, generator=g, device=cuda_device)
+    sv = SavimeServer().start()
+    st = StagingServer(sv.addr, mem_capacity=64 << 20).start()
+    try:
+        with injected(FaultPlan.parse("seed=5;drop:op=stripe_open,nth=1"),
+                      scope=[st.addr]) as inj:
+            cfg = TransportConfig(staging_addr=st.addr, codec="int8-block",
+                                  n_channels=2, stripe_bytes=64 << 10,
+                                  retry=0)
+            with TransferSession("rdma_staged", cfg) as sess:
+                reset_launches()
+                sess.write("D", x)
+                sess.sync(60)
+                launches = LAUNCHES["staging_pack"]
+        held = sv.engine.datasets["D"]
+    finally:
+        st.stop()
+        sv.stop()
+    assert inj.fired == {"drop": 1} and sess.stats.replays == 1
+    assert launches == 1 + sess.stats.replays
+    assert held.view(np.float32).tobytes() == _host_decode(x).tobytes()
+
+
 @pytest.mark.cuda
 def test_float16_pack_equals_the_host_codec(cuda_device):
     """A float16 CUDA tensor with codec int8-block: the kernel's payload

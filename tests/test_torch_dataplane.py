@@ -10,7 +10,6 @@ byte for byte: every SAVIME TAR (name, dimensions, attributes, subtars and
 their bytes), the DDL statements SAVIME ran (TAR and dataset names), and the
 sender's raw and wire byte counts. Every test stops its servers.
 """
-import dataclasses
 import functools
 
 import pytest
@@ -26,6 +25,7 @@ import repro_torch.transport as ptransport  # noqa: E402
 from repro.data.seismic import SeismicConfig as RefSeismicConfig  # noqa: E402
 from repro.data.seismic import SeismicField as RefSeismicField  # noqa: E402
 from repro_torch.data.seismic import SeismicConfig, SeismicField  # noqa: E402
+from _torch_crossings import savime_contents as _savime_contents  # noqa: E402
 
 CORE = {"ref": rcore, "port": pcore}
 MESH = dict(nx=31, ny=64, nz=64)
@@ -65,22 +65,6 @@ def _tree(step: int, as_tensor: bool) -> dict:
     if as_tensor:
         leaves = {k: torch.from_numpy(v) for k, v in leaves.items()}
     return {"diag": leaves, "lr": leaves["loss"] * 0}
-
-
-def _savime_contents(sv) -> dict:
-    """Every TAR with its dimensions, attributes and subtars' bytes, and
-    the datasets SAVIME holds but has not loaded."""
-    eng = sv.engine
-    out = {}
-    for name, t in sorted(eng.tars.items()):
-        subs = sorted((st.origin, st.shape, tuple(
-            (a, v.dtype.str, v.tobytes()) for a, v in sorted(st.data.items())))
-            for st in t.subtars)
-        out[name] = ([dataclasses.astuple(d) for d in t.dims],
-                     sorted(dataclasses.astuple(a) for a in t.attrs.values()),
-                     subs)
-    out["__datasets__"] = sorted(eng.datasets)
-    return out
 
 
 def _run(sink_pkg: str, server_pkg: str, codec: str, decode_at: str) -> dict:
@@ -195,17 +179,6 @@ def test_session_copies_a_tensor_to_the_host_without_a_codec():
     finally:
         st.stop()
         sv.stop()
-
-
-@pytest.mark.parametrize("kw,match", [
-    (dict(n_channels=2), "n_channels=2"),
-    (dict(coalesce_bytes=4096), "coalesce_bytes=4096"),
-    (dict(gateway=True), "gateway=True"),
-    (dict(transport="scp_mem"), "scp_mem"),
-])
-def test_sink_refuses_what_a_later_slice_brings(kw, match):
-    with pytest.raises(ValueError, match=match):
-        pcore.InTransitSink("127.0.0.1:1", pcore.InTransitConfig(**kw))
 
 
 def test_stage_tree_names_leaves_as_the_reference():

@@ -1,9 +1,13 @@
 """The port stands alone: no file of src/repro_torch/ nor chip_smoke.py
-imports jax, ml_dtypes (numpy's bfloat16, which jax brings) or anything of
-repro; every port module imports with all of them blocked; entry points refuse to run on the CPU unless asked to; the serve
-and train launchers reject the flags of what a later slice brings, and the
-serve launcher stages its latencies in transit; chip_smoke.py fails without
-a GPU and outside a checkout."""
+nor the port's examples imports jax, ml_dtypes (numpy's bfloat16, which jax
+brings) or anything of repro; every port module imports with all of them
+blocked; entry points refuse to run on the CPU unless asked to; the serve
+and train launchers take the reference's data-plane flags (the transports,
+striped channels, coalescing, the staging pool with tenancy, fault plans)
+and stage through each, and refuse only the multi-device ones (a mesh
+other than 1x1, the compressed cross-pod reduction); the quickstart twin
+runs on the CPU; chip_smoke.py fails without a GPU and outside a
+checkout."""
 import ast
 import os
 import shutil
@@ -15,11 +19,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import numpy as np  # noqa: E402
+
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "torch_simulation_intransit.py",
-    ROOT / "examples" / "torch_train_with_intransit.py"]
+    ROOT / "examples" / "torch_train_with_intransit.py",
+    ROOT / "examples" / "torch_quickstart.py"]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
@@ -101,37 +108,144 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     assert len(out["metrics"]) == 2 and "on cpu" in logs[0]
 
 
-@pytest.mark.parametrize("flag", ["--channels=2", "--mesh=1x1", "--pool=2",
-                                  "--coalesce-kb=64", "--transport=scp_mem"])
-def test_serve_cli_rejects_data_plane_flags(flag, capsys):
-    """The flags of what a later slice brings: the mesh, striped channels,
-    coalescing, the staging pool, and the copy-emulation transports."""
+def test_serve_cli_rejects_a_mesh(capsys):
+    """A mesh other than 1x1 is the multi-device slice's: argparse's exit
+    code 2 before anything runs."""
     from repro_torch.launch.serve import main
     with pytest.raises(SystemExit) as e:
-        main(["--arch", "gemma2-27b", "--smoke", "--device", "cpu", flag])
+        main(["--arch", "gemma2-27b", "--smoke", "--device", "cpu",
+              "--mesh=2x1"])
     assert e.value.code == 2
-    err = capsys.readouterr().err
-    if flag.startswith("--transport"):
-        assert "invalid choice: 'scp_mem'" in err
+    assert "multi-device" in capsys.readouterr().err
+
+
+@pytest.fixture()
+def recorded(monkeypatch):
+    """The sinks and staging servers the launchers make, kept for reading
+    after they stop."""
+    import repro_torch.core as pcore
+    made = {"sinks": [], "stagings": []}
+
+    class Sink(pcore.InTransitSink):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made["sinks"].append(self)
+
+    class Staging(pcore.StagingServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made["stagings"].append(self)
+
+    monkeypatch.setattr(pcore, "InTransitSink", Sink)
+    monkeypatch.setattr(pcore, "StagingServer", Staging)
+    return made
+
+
+SERVE_FLAGS = {
+    "mesh": ["--mesh=1x1"],
+    "channels": ["--channels=2"],
+    "coalesce": ["--coalesce-kb=64"],
+    "pool": ["--pool=2", "--tenant=alice:tok", "--quota-mb=1"],
+    "faults": ["--channels=2", "--faults=seed=1;drop:op=stripe,nth=2"],
+    **{e: [f"--transport={e}"] for e in ("scp_mem", "scp_disk", "ssh_direct")},
+}
+
+
+@pytest.mark.parametrize("case", list(SERVE_FLAGS))
+def test_serve_cli_stages_through_each_data_plane_flag(case, recorded, capsys):
+    """Each of the reference's data-plane flags runs on the CPU and the
+    decode latencies reach SAVIME through the feature it names."""
+    from repro_torch.launch.serve import main
+    main(["--arch", "gemma2-27b", "--smoke", "--device", "cpu", "--batch", "1",
+          "--prompt-len", "8", "--new-tokens", "4", "--intransit",
+          "--codec", "int8-block", "--analyzer", "running_stats",
+          *SERVE_FLAGS[case]])
+    out = capsys.readouterr().out
+    assert "analyzer[running_stats] over (3, 1) staged latencies" in out
+    assert "'count': 3" in out
+    (sink,) = recorded["sinks"]
+    stats = sink.session.stats
+    assert stats.n_datasets == 3
+    if case in ("channels", "faults"):
+        assert len(stats.channels) == 2
+        assert sum(c["n_stripes"] for c in stats.channels) == 3
+    if case == "faults":
+        assert "fault plan armed (seed=1, 1 rule(s))" in out
+        assert sum(c["adopted"] for c in stats.channels) >= 1
+    if case == "coalesce":
+        (st,) = recorded["stagings"]
+        assert st.stats["batched_datasets"] == 3
+    if case == "pool":
+        assert "staging pool: 2 backends" in out
+        assert stats.gateway["tenants"]["alice"]["datasets"] == 3
+        assert stats.gateway["tenants"]["alice"]["quota_bytes"] == 1 << 20
+    if case in ("scp_mem", "scp_disk", "ssh_direct"):
+        assert stats.engine == case and stats.codec == {}
     else:
-        assert "unrecognized arguments" in err
+        assert stats.codec["datasets"] == 3
+
+
+@pytest.mark.parametrize("flags,why", [
+    (["--tenant=a"], "--tenant/--quota-mb require --pool"),
+    (["--pool=2", "--transport=scp_mem"], "--pool requires the rdma_staged"),
+    (["--analyzer=histogram"], "--analyzer requires --intransit")])
+def test_serve_cli_checks_flags_as_the_reference(flags, why, capsys):
+    from repro_torch.launch.serve import main
+    with pytest.raises(SystemExit) as e:
+        main(["--arch", "gemma2-27b", "--smoke", "--device", "cpu", *flags])
+    assert e.value.code == 2
+    assert why in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flag,why", [
-    ("--mesh=2x1", "multi-device"), ("--channels=2", "striped channels"),
-    ("--coalesce-kb=64", "coalescing"), ("--faults=seed=1", "fault plans"),
-    ("--transport=scp_mem", "copy-emulation"),
+    ("--mesh=2x1", "multi-device"),
     ("--compress-pods", "cross-pod reduction")])
-def test_train_cli_rejects_data_plane_flags(flag, why, capsys):
-    """The reference's train flags that the port cannot serve yet: the mesh,
-    striped channels, coalescing, fault plans, the copy-emulation transports
-    and the compressed cross-pod reduction. Each exits with argparse's code
-    2 before anything runs."""
+def test_train_cli_rejects_multi_device_flags(flag, why, capsys):
+    """The reference's train flags that belong to the multi-device slice:
+    the mesh and the compressed cross-pod reduction. Each exits with
+    argparse's code 2 before anything runs."""
     from repro_torch.launch.train import main
     with pytest.raises(SystemExit) as e:
         main(["--arch", "gemma2-27b", "--smoke", "--device", "cpu", flag])
     assert e.value.code == 2
     assert why in capsys.readouterr().err
+
+
+TRAIN_FLAGS = {
+    "channels+coalesce": ["--channels=2", "--coalesce-kb=64"],
+    "faults": ["--channels=2", "--coalesce-kb=64",
+               "--faults=seed=7;drop:op=batch_write,nth=2"],
+    **{e: [f"--transport={e}"] for e in ("scp_mem", "scp_disk", "ssh_direct")},
+}
+
+
+@pytest.mark.parametrize("case", list(TRAIN_FLAGS))
+def test_train_cli_stages_through_each_data_plane_flag(case, tmp_path, capsys):
+    """The train launcher with each of the reference's data-plane flags on
+    the CPU: the loss falls and SAVIME holds every step's diagnostics,
+    staged through the feature the flag names."""
+    from repro_torch.launch.train import main
+    out = main(["--arch", "gemma2-27b", "--smoke", "--device", "cpu",
+                "--steps", "6", "--seq", "16", "--batch", "2", "--ckpt-every",
+                "3", "--ckpt-dir", str(tmp_path), "--intransit", "--egress",
+                "grads_int8", *TRAIN_FLAGS[case]])
+    losses = [m["loss"] for m in out["metrics"]]
+    assert losses[-1] < losses[0] and out["diag"].shape == (6, 2)
+    np.testing.assert_allclose(out["diag"][:, 0], losses, rtol=1e-6)
+    t, st = out["transfer"], out["staging"]
+    if case == "channels+coalesce":
+        # the step egress (diag, int8 blocks, scales: 3 datasets a step,
+        # each below 64 KiB) rides coalesced frames, the checkpoints'
+        # larger leaves the stripes
+        assert len(t["channels"]) == 2
+        assert st["stripes"] > 0 and st["batched_datasets"] >= 6 * 3
+    if case == "faults":
+        # the dropped batch_write fails its batch; the journal replays each
+        # of its datasets on its own, past the coalescer
+        assert "fault plan armed (seed=7, 1 rule(s))" in capsys.readouterr().out
+        assert t["replays"] >= 1 and st["stripes"] > 0
+    if case in ("scp_mem", "scp_disk", "ssh_direct"):
+        assert t["engine"] == case and st["datasets"] == 0
 
 
 @pytest.mark.parametrize("codec", ["int8-block", "none"])
@@ -170,6 +284,25 @@ def test_serve_module_runs_falcon_mamba_on_the_cpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert "falcon-mamba-7b-smoke" in r.stdout and "decode p50" in r.stdout
+
+
+def test_quickstart_twin_runs_on_the_cpu_without_jax():
+    """``examples/torch_quickstart.py --device cpu --smoke`` with jax,
+    ml_dtypes and repro blocked: Listing 1 with the field as a tensor, the
+    typed queries and the 3-backend pool all assert, and it ends with
+    ``OK`` as the reference's quickstart does."""
+    prog = ("import runpy, sys\n"
+            f"for name in {FORBIDDEN!r}:\n"
+            "    sys.modules[name] = None\n"
+            "sys.argv = ['quickstart', '--device', 'cpu', '--smoke']\n"
+            f"runpy.run_path({str(ROOT / 'examples' / 'torch_quickstart.py')!r},"
+            " run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", prog], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert r.stdout.splitlines()[-1] == "OK"
+    assert "pool: 6 datasets sharded over 3 backends" in r.stdout
 
 
 def _run_smoke(cwd: Path):
