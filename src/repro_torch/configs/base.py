@@ -1,18 +1,33 @@
-"""Architecture configuration: the subset of the reference's ``ArchConfig``
-(``repro/configs/base.py``) that the ported kinds read, as a plain frozen
-dataclass.
+"""Architecture configuration, the port of ``repro/configs/base.py``: the
+reference's ``ArchConfig`` and its sub-configs as plain frozen dataclasses,
+for every layer kind the reference has (dense, local, global, moe, mamba,
+rglru) and its prefix-LM and frontend fields.
 
-Only the fields the dense/local/global attention and mamba paths and the
-single-device training path read are kept; the MoE, RG-LRU, prefix-LM and
-sharding fields belong to later slices.
+Left out: ``attn_chunk`` (the reference's XLA chunk size; the port's
+attention is the flash kernel or its plain version, neither of which takes
+a chunk) and ``ShapeConfig``, ``input_specs`` and ``flops_per_step``, which
+describe the reference's XLA dry runs and come with their torch analogue.
+``pad_heads_to`` exists only for tensor-parallel sharding and is refused
+beyond ``n_heads`` until the multi-device slice brings it.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-BLOCK_KINDS = ("dense", "local", "global", "mamba")
-ATTN_KINDS = ("dense", "local", "global")
+BLOCK_KINDS = ("dense", "local", "global", "moe", "mamba", "rglru")
+ATTN_KINDS = ("dense", "local", "global", "moe")   # the kinds with attention
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int                 # expert hidden (ffn) width
+    capacity_factor: float = 1.25
+    dense_residual: bool = False  # arctic: dense MLP in parallel with MoE
+    shared_expert: bool = False   # llama4: always-on shared expert
+    router_dtype: str = "float32"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,6 +39,13 @@ class SSMConfig:
 
     def resolved_dt_rank(self, d_model: int) -> int:
         return self.dt_rank or -(-d_model // 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    d_rnn: int = 0                # 0 -> d_model
+    d_conv: int = 4
+    block_width: int = 0          # diagonal-block input gates; 0 -> d_rnn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,20 +62,31 @@ class ArchConfig:
     layer_pattern: tuple[str, ...] = ("dense",)
 
     attn_window: int = 0          # local-attention window
+    pad_heads_to: int = 0         # tensor-parallel head padding: not ported
+    qkv_bias: bool = False
     attn_softcap: float = 0.0     # attention logit soft-capping
     logit_softcap: float = 0.0    # final-logit soft-capping
+    qk_norm: bool = False         # gemma3 rms-norm on q/k
     query_scale: float = 0.0      # 0 -> 1/sqrt(head_dim)
     rope_theta: float = 10_000.0
 
     mlp_act: str = "silu"         # silu | gelu (tanh) | relu
     mlp_glu: bool = True
 
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
 
     tie_embeddings: bool = False
     scale_embeddings: bool = False   # gemma: * sqrt(d_model), (1+w) norms
     norm_eps: float = 1e-6
     post_norms: bool = False
+
+    # modality frontend (a stub in the reference too: the caller passes
+    # precomputed prefix embeddings)
+    frontend: str = ""               # "" | "audio_frames" | "vision_patches"
+    n_prefix: int = 0                # prefix embeddings prepended
+    prefix_bidirectional: bool = False
 
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -63,12 +96,19 @@ class ArchConfig:
     def __post_init__(self):
         bad = [k for k in self.layer_pattern if k not in BLOCK_KINDS]
         if bad:
-            raise ValueError(f"layer kinds {bad} are not ported; "
-                             f"supported: {BLOCK_KINDS}")
+            raise ValueError(f"unknown layer kinds {bad}; known: {BLOCK_KINDS}")
         if "local" in self.layer_pattern and self.attn_window <= 0:
             raise ValueError("local layers need attn_window > 0")
-        if "mamba" in self.layer_pattern and self.ssm is None:
-            raise ValueError("mamba layers need an SSMConfig")
+        for kind, sub, field in (("moe", self.moe, "MoEConfig"),
+                                 ("mamba", self.ssm, "SSMConfig"),
+                                 ("rglru", self.rglru, "RGLRUConfig")):
+            if kind in self.layer_pattern and sub is None:
+                raise ValueError(f"{kind} layers need an {field}")
+        if self.pad_heads_to > self.n_heads:
+            raise ValueError(
+                f"pad_heads_to {self.pad_heads_to} > n_heads {self.n_heads}: "
+                f"padded heads exist only for tensor-parallel sharding, which "
+                f"comes with the multi-device slice")
 
     @property
     def layer_kinds(self) -> tuple[str, ...]:
@@ -80,33 +120,33 @@ class ArchConfig:
     def d_inner(self) -> int:
         return self.ssm.expand * self.d_model if self.ssm else 0
 
+    @property
+    def d_rnn(self) -> int:
+        if not self.rglru:
+            return 0
+        return self.rglru.d_rnn or self.d_model
+
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks), as the reference
-        computes it for the ported kinds."""
-        M, V = self.d_model, self.vocab_size
-        n = V * M if self.tie_embeddings else 2 * V * M
-        for kind in self.layer_kinds:
-            if kind in ATTN_KINDS:
-                n += (M * self.n_heads * self.head_dim * 2
-                      + M * self.n_kv_heads * self.head_dim * 2
-                      + M * self.d_ff * (3 if self.mlp_glu else 2))
-            elif kind == "mamba":
-                s = self.ssm
-                di, dr = self.d_inner, s.resolved_dt_rank(M)
-                n += (M * 2 * di                  # in_proj
-                      + di * s.d_conv             # conv
-                      + di * (dr + 2 * s.d_state)  # x_proj
-                      + dr * di                   # dt_proj
-                      + di * s.d_state + 2 * di   # A_log, D, dt bias-ish
-                      + di * M)                   # out_proj
-            n += 2 * M                            # pre-norms (approx.)
-        return n
+        computes it."""
+        return _param_count(self, active_only=False)
+
+    def active_param_count(self) -> int:
+        """The same with each MoE layer's top_k experts only."""
+        return _param_count(self, active_only=True)
 
     def smoke(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (the reference's reduction)."""
         period = len(self.layer_pattern)
         n_layers = period + 1 if self.n_layers > period else period
-        ssm = dataclasses.replace(self.ssm, d_state=8) if self.ssm else None
+        kw = {}
+        if self.moe:
+            kw["moe"] = dataclasses.replace(self.moe, n_experts=8, d_expert=96)
+        if self.ssm:
+            kw["ssm"] = dataclasses.replace(self.ssm, d_state=8)
+        if self.rglru:
+            kw["rglru"] = dataclasses.replace(self.rglru, d_rnn=64,
+                                              block_width=32)
         return dataclasses.replace(
             self,
             name=self.name + "-smoke",
@@ -119,6 +159,46 @@ class ArchConfig:
             d_ff=128,
             vocab_size=256,
             attn_window=min(self.attn_window, 32) if self.attn_window else 0,
-            ssm=ssm,
+            n_prefix=min(self.n_prefix, 4),
             remat="none",
+            **kw,
         )
+
+
+def _param_count(cfg: ArchConfig, active_only: bool) -> int:
+    M, V = cfg.d_model, cfg.vocab_size
+    glu = 3 if cfg.mlp_glu else 2
+    n = V * M if cfg.tie_embeddings else 2 * V * M
+    for kind in cfg.layer_kinds:
+        if kind in ATTN_KINDS:
+            n += (M * cfg.n_heads * cfg.head_dim * 2        # q, o
+                  + M * cfg.n_kv_heads * cfg.head_dim * 2)  # k, v
+        if kind in ("dense", "local", "global"):
+            n += M * cfg.d_ff * glu
+        elif kind == "moe":
+            m = cfg.moe
+            e = m.top_k if active_only else m.n_experts
+            n += e * M * m.d_expert * glu
+            if m.shared_expert:
+                n += M * m.d_expert * glu
+            if m.dense_residual:
+                n += M * cfg.d_ff * glu
+            n += M * m.n_experts                          # router
+        elif kind == "mamba":
+            s = cfg.ssm
+            di, dr = cfg.d_inner, s.resolved_dt_rank(M)
+            n += (M * 2 * di                  # in_proj
+                  + di * s.d_conv             # conv
+                  + di * (dr + 2 * s.d_state)  # x_proj
+                  + dr * di                   # dt_proj
+                  + di * s.d_state + 2 * di   # A_log, D, dt bias-ish
+                  + di * M)                   # out_proj
+        elif kind == "rglru":
+            dr = cfg.d_rnn
+            n += (M * dr * 2                  # x, y branches in
+                  + dr * cfg.rglru.d_conv
+                  + 2 * dr * (cfg.rglru.block_width or dr)  # gates
+                  + dr * M                    # out
+                  + M * cfg.d_ff * glu)       # block MLP
+        n += 2 * M                            # pre-norms (approx.)
+    return n

@@ -3,7 +3,9 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (`flash_attention`, body `_flash_kernel`): online-softmax GQA attention
 // with fp32 scores x scale, optional tanh(s/cap)*cap softcap, causal k <= q,
-// sliding window q - k < window, fully-masked kv tiles skipped, output
+// sliding window q - k < window, a prefix-LM prefix (every row also sees the
+// keys k < prefix; the reference model's make_mask_fn, which never composes
+// a prefix with a window), fully-masked kv tiles skipped, output
 // acc / max(l, 1e-30) in q's dtype.
 //
 // What bounds it on the H100: in bf16 the work is 4*B*Hq*D*sum_q|visible k|
@@ -17,10 +19,18 @@
 // Two instances, chosen by dtype and head dim (dispatch by shape: each
 // input goes to exactly one of them, nothing is retried elsewhere):
 //
-// bfloat16, D 64 and 128: the tensor-core instance (`flash_fwd_wgmma`).
+// bfloat16, D 64, 128 and 256: the tensor-core instance (`flash_fwd_wgmma`).
 //   * one block = one warpgroup (128 threads) per (b*Hq + h, 64-row query
 //     tile); two blocks share an SM, so one block's softmax overlaps the
 //     other's products;
+//   * at D 256 a tile is 32 KiB, so Q and a 2-stage K/V ring would take
+//     160 KiB and leave one block an SM. D 256 keeps two blocks an SM with
+//     a 1-stage ring instead (96 KiB a block): the next tile's load no
+//     longer overlaps the block's own compute, but it overlaps the other
+//     block's, and the other block's softmax still overlaps this one's
+//     products. The O accumulator is 64 x 256 f32, 128 registers a thread
+//     beside S's 32, inside the 255 that two blocks of 128 threads allow;
+//     P V is two m64n128k16 products, one for each half of the columns;
 //   * S = Q K^T and O += P V are `wgmma` with bf16 operands and f32
 //     accumulators: Q and K from shared memory (K-major), P from registers
 //     (the S accumulator converted to bf16 in place: its layout is the A
@@ -29,8 +39,9 @@
 //   * TMA brings Q once and K/V tiles of 64 keys through a ring of 2 stages
 //     in dynamic shared memory, 128-byte swizzled, each stage completing on
 //     its own mbarrier; a 128-element bf16 row is 256 B, so a tile is two
-//     64-column boxes. The load of tile i + 2 starts as soon as the
-//     warpgroup has finished tile i, so it overlaps tile i + 1's compute.
+//     64-column boxes (four at D 256). With 2 stages the load of tile i + 2
+//     starts as soon as the warpgroup has finished tile i, so it overlaps
+//     tile i + 1's compute.
 //     The tensor maps are made on the host per call with
 //     cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
 //     nothing links against libcuda. TMA needs the base 16-byte aligned and
@@ -39,9 +50,17 @@
 //   * the online softmax's (m, l) stay in registers in the accumulator's
 //     layout: a thread holds two rows, each spread over a quad of 4
 //     threads, reduced with __shfl_xor 1 and 2 (l only at the end);
-//   * masks are applied only on tiles that cross the diagonal, the
-//     window's edge or the ragged end; masked scores are -inf, so they add
-//     exactly 0 whichever tiles are skipped;
+//   * masks are applied only on tiles that cross the diagonal (unless the
+//     whole tile lies in the prefix), the window's edge or the ragged end,
+//     in a loop of their own behind that block-uniform test: folded into
+//     the scale/softcap loop, the per-element test cost 0.3-1.1 ms of
+//     2.6 at gemma2-27b's serve shape (NVIDIA H100 80GB HBM3, 700 W;
+//     tools/bench_kernels.py); masked scores are -inf, so they add exactly 0
+//     whichever tiles are skipped, and a row that sees no key of a tile (a
+//     prefix row in a tile past the diagonal that the prefix brings in)
+//     gets p = 0 there;
+//   * under a causal mask the kv loop ends at max(last row + 1, prefix):
+//     a prefix row sees prefix keys past its own position;
 //   * rounding: P is rounded to bf16 before P V (that is what feeds the
 //     tensor cores); l sums the f32 p. ref.py's `kernel_error_limit` states
 //     what this costs against the f32 plain version.
@@ -76,8 +95,22 @@ struct Params {
   int64_t o_sb, o_ss, o_sh;
   int Sq, Sk, Hq, groups;
   float scale, softcap;
-  int causal, window;
+  int causal, window, prefix;
 };
+
+// The reference's mask (make_mask_fn): causal and window narrow what a row
+// sees, the prefix widens it again. A prefix never comes with a window
+// (kernel.py raises), so the two never compose here.
+__device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
+  bool ok = p.causal ? kpos <= qpos : true;
+  if (p.window > 0) ok = ok && qpos - kpos < p.window;
+  return ok || kpos < p.prefix;
+}
+
+// The end of the kv tiles a query tile [q0, q_last] needs.
+__device__ __forceinline__ int kv_end(const Params& p, int q_last) {
+  return p.causal ? min(p.Sk, max(q_last + 1, p.prefix)) : p.Sk;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -137,7 +170,7 @@ flash_fwd_fma(const Params p) {
 
   // kv tiles that hold at least one visible key for some row of this tile
   const int q_last = min(q0 + BQ, p.Sq) - 1;
-  const int k_end = p.causal ? min(p.Sk, q_last + 1) : p.Sk;
+  const int k_end = kv_end(p, q_last);
   const int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
   const int kt_begin = k_begin / BK;
   const int kt_end = (k_end + BK - 1) / BK;
@@ -183,9 +216,7 @@ flash_fwd_fma(const Params p) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int kpos = k0 + kc + 8 * j;
-        bool vis = kpos < p.Sk && qpos < p.Sq;
-        if (p.causal) vis = vis && kpos <= qpos;
-        if (p.window > 0) vis = vis && (qpos - kpos) < p.window;
+        const bool vis = kpos < p.Sk && qpos < p.Sq && visible(p, qpos, kpos);
         float x = s[i][j] * p.scale;
         if (p.softcap > 0.f) x = tanhf(x / p.softcap) * p.softcap;
         s[i][j] = x;
@@ -262,7 +293,6 @@ namespace tc {
 
 constexpr int BQ = 64;            // query rows per block: one warpgroup
 constexpr int BK = 64;            // keys per kv tile
-constexpr int STAGES = 2;         // depth of the K/V ring
 constexpr int NTHREADS = 128;
 constexpr int BOX = 64;           // columns per TMA box: 128 B, the swizzle span
 constexpr int BOX_BYTES = 64 * 128;  // one 64-row box
@@ -270,9 +300,12 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle repeats
 // every 8 rows of 128 B): the Q tile, K[STAGES], V[STAGES], then the
-// mbarriers (Q, then one per stage). A tile is D/64 boxes of 64 rows.
+// mbarriers (Q, then one per stage). A tile is D/64 boxes of 64 rows. The
+// K/V ring has 2 stages up to D 128 and 1 at D 256, so that two blocks
+// share an SM at every head dim (99,344 B a block at D 256).
 template <int D>
 struct Layout {
+  static constexpr int STAGES = D > 128 ? 1 : 2;   // depth of the K/V ring
   static constexpr int TILE = 64 * D * 2;
   static constexpr int Q = 0;
   static constexpr int K = TILE;
@@ -426,20 +459,37 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// O (64 x D) += P (64 x 16 keys) V, V's 16 rows starting at shared address
+// `v` of a tile of D/64 swizzled boxes (MN-major: LBO = the next box).
+__device__ __forceinline__ uint64_t v_desc(uint32_t v) {
+  return sw128_desc(v, BOX_BYTES, 1024);
+}
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t db);
+                                         const uint32_t (&a)[4], uint32_t v);
 template <>
 __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
                                              const uint32_t (&a)[4],
-                                             uint64_t db) {
-  wgmma_rs_n64(o, a, db);
+                                             uint32_t v) {
+  wgmma_rs_n64(o, a, v_desc(v));
 }
 template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
                                               const uint32_t (&a)[4],
-                                              uint64_t db) {
-  wgmma_rs_n128(o, a, db);
+                                              uint32_t v) {
+  wgmma_rs_n128(o, a, v_desc(v));
+}
+// D 256: two n = 128 products, columns 0..127 (boxes 0, 1) into o[0..63]
+// and 128..255 (boxes 2, 3) into o[64..127]; element e of the second half's
+// accumulator is element 64 + e of the m64n256 layout, so the epilogue reads
+// o as one m64n256 accumulator.
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&o)[128],
+                                              const uint32_t (&a)[4],
+                                              uint32_t v) {
+  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[0]), a, v_desc(v));
+  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[64]), a,
+                v_desc(v + 2 * BOX_BYTES));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -491,10 +541,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 
   // kv tiles that hold at least one visible key for some row of this tile
   const int q_last = min(q0 + BQ, p.Sq) - 1;
-  const int k_end = p.causal ? min(p.Sk, q_last + 1) : p.Sk;
+  const int k_end = kv_end(p, q_last);
   const int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
   const int kt_begin = k_begin / BK;
   const int n_tiles = (k_end + BK - 1) / BK - kt_begin;
+  constexpr int STAGES = L::STAGES;
 
   if (tid == 0) {
     for (int i = 0; i < 1 + STAGES; ++i) mbar_init(bar + 8 * i, 1);
@@ -545,25 +596,25 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     wgmma_wait0();
     fence_regs(s);
 
-    const bool edge = k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > q0) ||
+    // a tile wholly inside the prefix is visible to every row
+    const bool edge = k0 + BK > p.Sk ||
+                      (p.causal && k0 + BK - 1 > q0 && k0 + BK > p.prefix) ||
                       (p.window > 0 && q0 + BQ - 1 - k0 >= p.window);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int e = 0; e < BK / 2; ++e) {
-      const int half = (e >> 1) & 1;
-      float x = CAP ? tanhf(s[e] * p.scale * inv_cap) * cap_l2
-                    : s[e] * scale_l2;
-      if (edge) {
-        const int qpos = q0 + r_lo + 8 * half;
+    for (int e = 0; e < BK / 2; ++e)
+      s[e] = CAP ? tanhf(s[e] * p.scale * inv_cap) * cap_l2 : s[e] * scale_l2;
+    if (edge) {
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const int qpos = q0 + r_lo + 8 * ((e >> 1) & 1);
         const int kpos = k0 + 8 * (e / 4) + cq + (e & 1);
-        bool vis = kpos < p.Sk;
-        if (p.causal) vis = vis && kpos <= qpos;
-        if (p.window > 0) vis = vis && qpos - kpos < p.window;
-        if (!vis) x = -INFINITY;
+        if (!(kpos < p.Sk && visible(p, qpos, kpos))) s[e] = -INFINITY;
       }
-      s[e] = x;
-      mx[half] = fmaxf(mx[half], x);
     }
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e)
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -594,7 +645,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j)
-      wgmma_pv<D>(o, pa[j], sw128_desc(v_t + j * 16 * 128, BOX_BYTES, 1024));
+      wgmma_pv<D>(o, pa[j], v_t + j * 16 * 128);
     wgmma_commit();
     wgmma_wait0();
     fence_regs(o);
@@ -693,18 +744,44 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 
 }  // namespace tc
 
+// Blocks of `kernel` an SM holds at once with `smem` bytes of dynamic shared
+// memory (CUDA's occupancy calculator), or -1.
+template <typename K>
+int blocks_per_sm(K kernel, int smem) {
+  int n = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, NTHREADS,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+template <typename T, int D>
+int fma_shape(int* smem) {
+  *smem = (int)(sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BQ * PP));
+  return blocks_per_sm(flash_fwd_fma<T, D>, *smem);
+}
+
+template <int D>
+int tc_shape(int* smem) {
+  *smem = tc::Layout<D>::ALLOC;
+  return blocks_per_sm(tc::flash_fwd_wgmma<D, false>, *smem);
+}
+
 cudaError_t dispatch_f32(const Params& p, int B, int D, cudaStream_t stream) {
   switch (D) {
     case 16: return launch<float, 16>(p, B, stream);
     case 32: return launch<float, 32>(p, B, stream);
     case 64: return launch<float, 64>(p, B, stream);
     case 128: return launch<float, 128>(p, B, stream);
+    case 256: return launch<float, 256>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// bf16 at D 64 and 128 takes the tensor-core instance (with or without the
-// softcap); bf16 at D 16 and 32 takes the FMA instance.
+// bf16 at D 64, 128 and 256 takes the tensor-core instance (with or without
+// the softcap); bf16 at D 16 and 32 takes the FMA instance.
 cudaError_t dispatch_bf16(const Params& p, int B, int D, cudaStream_t stream) {
   const bool cap = p.softcap > 0.f;
   switch (D) {
@@ -714,6 +791,8 @@ cudaError_t dispatch_bf16(const Params& p, int B, int D, cudaStream_t stream) {
                         : tc::launch<64, false>(p, B, stream);
     case 128: return cap ? tc::launch<128, true>(p, B, stream)
                          : tc::launch<128, false>(p, B, stream);
+    case 256: return cap ? tc::launch<256, true>(p, B, stream)
+                         : tc::launch<256, false>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -724,13 +803,15 @@ extern "C" {
 
 // q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), o (B, Sq, Hq, D); strides[12] are
 // element strides (batch, seq, head) of q, k, v, o in that order.
-// dtype: 0 = float32, 1 = bfloat16. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); never synchronises.
+// dtype: 0 = float32, 1 = bfloat16. prefix: every row also sees keys
+// k < prefix (0: none; never with a window). Launches on `stream` and
+// returns cudaGetLastError() (0 on success); never synchronises.
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
                               void* o, const int64_t* strides, int B, int Sq,
                               int Sk, int Hq, int Hkv, int D, int dtype,
                               float scale, float softcap, int causal,
-                              int window, void* stream) {
+                              int window, int prefix, void* stream) {
+  if (prefix < 0 || (prefix > 0 && window > 0)) return (int)cudaErrorInvalidValue;
   if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
@@ -740,12 +821,44 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
   p.o_sb = strides[9]; p.o_ss = strides[10]; p.o_sh = strides[11];
   p.Sq = Sq; p.Sk = Sk; p.Hq = Hq; p.groups = Hq / Hkv;
   p.scale = scale; p.softcap = softcap;
-  p.causal = causal; p.window = window;
+  p.causal = causal; p.window = window; p.prefix = prefix;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 0 ? dispatch_f32(p, B, D, s)
                   : dtype == 1 ? dispatch_bf16(p, B, D, s)
                                : cudaErrorInvalidValue;
   return (int)err;
+}
+
+// The instance a (dtype, D) input runs: its dynamic shared memory a block
+// (bytes) into *smem and the blocks an SM holds at once into
+// *blocks_per_sm. Returns 0, or cudaErrorInvalidValue for an input the
+// kernel does not take.
+int repro_flash_attention_launch_shape(int D, int dtype, int* smem,
+                                       int* blocks_per_sm) {
+  int n = -1;
+  if (dtype == 0) {
+    switch (D) {
+      case 16: n = fma_shape<float, 16>(smem); break;
+      case 32: n = fma_shape<float, 32>(smem); break;
+      case 64: n = fma_shape<float, 64>(smem); break;
+      case 128: n = fma_shape<float, 128>(smem); break;
+      case 256: n = fma_shape<float, 256>(smem); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else if (dtype == 1) {
+    switch (D) {
+      case 16: n = fma_shape<__nv_bfloat16, 16>(smem); break;
+      case 32: n = fma_shape<__nv_bfloat16, 32>(smem); break;
+      case 64: n = tc_shape<64>(smem); break;
+      case 128: n = tc_shape<128>(smem); break;
+      case 256: n = tc_shape<256>(smem); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  *blocks_per_sm = n;
+  return 0;
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -4,11 +4,14 @@ the Hopper counterpart of ``repro/kernels/flash_attention/kernel.py``.
 The kernel reads q (B, Sq, Hq, D) and k/v (B, Sk, Hkv, D) in place through
 their strides (the head dim must be contiguous) and writes a new
 (B, Sq, Hq, D) tensor. It takes float32 and bfloat16 and head dims
-16, 32, 64 and 128, and raises on anything else: there is no fallback.
-bfloat16 at head dim 64 or 128 runs the tensor-core instance, which loads
-through TMA: there each of q, k, v must start on a 16-byte boundary and
-every stride of a dimension longer than 1 must be a multiple of 16 bytes
-(``check_inputs`` raises otherwise; nothing is copied).
+16, 32, 64, 128 and 256, and raises on anything else: there is no fallback.
+bfloat16 at head dim 64, 128 or 256 runs the tensor-core instance, which
+loads through TMA: there each of q, k, v must start on a 16-byte boundary
+and every stride of a dimension longer than 1 must be a multiple of 16
+bytes (``check_inputs`` raises otherwise; nothing is copied). Besides the
+causal mask and the sliding window it takes a prefix-LM ``prefix`` (every
+row also sees the keys before it), never together with a window: the
+reference model never composes the two, and the kernel does not.
 """
 from __future__ import annotations
 
@@ -18,8 +21,8 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, build
 
-HEAD_DIMS = (16, 32, 64, 128)
-TENSOR_CORE_HEAD_DIMS = (64, 128)   # bf16 only
+HEAD_DIMS = (16, 32, 64, 128, 256)
+TENSOR_CORE_HEAD_DIMS = (64, 128, 256)   # bf16 only
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TMA_ALIGN = 16
 _MAX_GRID_Y = 65535
@@ -31,9 +34,27 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int64)]
                        + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+def launch_shape(D: int, dtype: torch.dtype) -> dict:
+    """The dynamic shared memory a block (bytes) and the blocks an SM holds
+    at once (CUDA's occupancy calculator) of the instance a (dtype, D) input
+    runs: the tensor-core instance for bf16 at D 64, 128, 256, else the FMA
+    instance. Needs the card."""
+    if dtype not in _DTYPES or D not in HEAD_DIMS:
+        raise ValueError(f"no instance for {dtype} at head dim {D}")
+    lib = _library()
+    fn = lib.repro_flash_attention_launch_shape
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    build.check(lib, fn(D, _DTYPES[dtype], ctypes.byref(smem),
+                        ctypes.byref(blocks)), "flash_attention launch_shape")
+    return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
 
 
 def _strides(t: torch.Tensor) -> tuple[int, ...]:
@@ -47,7 +68,7 @@ def _strides(t: torch.Tensor) -> tuple[int, ...]:
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 causal: bool, window: int) -> None:
+                 causal: bool, window: int, prefix: int = 0) -> None:
     """Raise ValueError on inputs the kernel does not take."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B,Sq,Hq,D) and k/v (B,Sk,Hkv,D); got "
@@ -76,6 +97,12 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"B*Hq = {B * Hq} exceeds {_MAX_GRID_Y}")
     if window < 0:
         raise ValueError(f"window {window} < 0")
+    if prefix < 0:
+        raise ValueError(f"prefix {prefix} < 0")
+    if prefix and window:
+        raise ValueError(f"prefix {prefix} with window {window}: the reference "
+                         f"gives local layers no prefix, and neither the "
+                         f"kernel nor its plain version composes the two")
     # every query row must see at least one key; the dense reference's answer
     # for a row with none (a uniform average) is not reproduced
     if Sq and (Sk == 0 or (window and Sq - 1 > Sk + window - 2)):
@@ -85,7 +112,7 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float, softcap: float = 0.0, causal: bool = True,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, prefix: int = 0) -> torch.Tensor:
     """Launch the kernel on the current stream. q: (B,Sq,Hq,D) CUDA;
     k/v: (B,Sk,Hkv,D). Returns (B,Sq,Hq,D) in q's dtype. Does not
     synchronise; raises if the launch is refused. Counts each launch in
@@ -93,7 +120,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"the CUDA kernel needs q, k, v on one CUDA device; "
                          f"got {q.device}, {k.device}, {v.device}")
-    check_inputs(q, k, v, causal=causal, window=window)
+    check_inputs(q, k, v, causal=causal, window=window, prefix=prefix)
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     o = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
@@ -107,7 +134,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = lib.repro_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
             B, Sq, Sk, Hq, Hkv, D, _DTYPES[q.dtype], float(scale),
-            float(softcap), int(bool(causal)), int(window), stream)
+            float(softcap), int(bool(causal)), int(window), int(prefix),
+            stream)
     build.check(lib, err, "flash_attention launch")
     LAUNCHES["flash_attention"] += 1
     return o

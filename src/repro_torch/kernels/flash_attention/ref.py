@@ -20,8 +20,19 @@ BF16_ROUNDING = 2.0 ** -8
 _MAX_SCORE_ELEMS = 1 << 28
 
 
-def _mask(Sq: int, Sk: int, causal: bool, window: int,
+def _check_prefix(window: int, prefix: int) -> None:
+    """The reference gives local (windowed) layers no prefix, so neither the
+    kernel nor this plain version composes the two."""
+    if prefix < 0 or (prefix and window):
+        raise ValueError(f"prefix {prefix} with window {window}: a prefix is "
+                         f">= 0 and never comes with a window")
+
+
+def _mask(Sq: int, Sk: int, causal: bool, window: int, prefix: int,
           device: torch.device) -> torch.Tensor:
+    """The reference's make_mask_fn: causal and window narrow what a row
+    sees, then every row also sees the keys k < prefix."""
+    _check_prefix(window, prefix)
     qp = torch.arange(Sq, device=device)[:, None]
     kp = torch.arange(Sk, device=device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
@@ -29,6 +40,8 @@ def _mask(Sq: int, Sk: int, causal: bool, window: int,
         mask &= kp <= qp
     if window:
         mask &= (qp - kp) < window
+    if prefix:
+        mask |= kp < prefix
     return mask
 
 
@@ -52,13 +65,15 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   groups: int = 1, scale: float = 1.0, softcap: float = 0.0,
-                  causal: bool = True, window: int = 0) -> torch.Tensor:
+                  causal: bool = True, window: int = 0,
+                  prefix: int = 0) -> torch.Tensor:
     """q: (BHq, Sq, D); k/v: (BHkv, Sk, D) with BHq = BHkv * groups, head-major.
     Same semantics as the kernel: masked scores are NEG_INF and the row sum
-    is floored at 1e-30. Returns (BHq, Sq, D) in q's dtype."""
+    is floored at 1e-30. ``prefix`` (never with a window): every row also
+    sees the keys k < prefix. Returns (BHq, Sq, D) in q's dtype."""
     BH, Sq, _ = q.shape
     Sk = k.shape[1]
-    mask = _mask(Sq, Sk, causal, window, q.device)
+    mask = _mask(Sq, Sk, causal, window, prefix, q.device)
     out = torch.empty_like(q)
     rows = _row_chunk(Sq, Sk)
     for r0 in range(0, BH, rows):
@@ -72,7 +87,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention_ref_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       do: torch.Tensor, *, groups: int = 1, scale: float = 1.0,
                       softcap: float = 0.0, causal: bool = True,
-                      window: int = 0):
+                      window: int = 0, prefix: int = 0):
     """The gradients (dq, dk, dv) of ``attention_ref`` at (q, k, v) against
     the output gradient ``do``, each in its input's dtype: the plain version
     recomputed and differentiated one chunk of rows at a time, so that only
@@ -81,7 +96,7 @@ def attention_ref_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contributions of a kv row's ``groups`` query rows in f32."""
     BH, Sq, _ = q.shape
     Sk = k.shape[1]
-    mask = _mask(Sq, Sk, causal, window, q.device)
+    mask = _mask(Sq, Sk, causal, window, prefix, q.device)
     dq = torch.empty_like(q)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
@@ -146,13 +161,16 @@ def mask_probe(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int, *,
 
 
 def mask_probe_answer(B: int, Sq: int, Sk: int, Hq: int, D: int, *,
-                      causal: bool, window: int,
+                      causal: bool, window: int, prefix: int = 0,
                       device: torch.device | str = "cpu") -> torch.Tensor:
     """The probe's exact output (B, Sq, Hq, D) in f32: each row sees the keys
     lo..hi, whose (-1)**k sum to 0 when their count n is even and to
-    (-1)**lo when it is odd."""
+    (-1)**lo when it is odd. A prefix (no window) raises hi to at least
+    prefix - 1."""
+    _check_prefix(window, prefix)
     qp = torch.arange(Sq, device=device)
-    hi = torch.clamp(qp, max=Sk - 1) if causal else torch.full_like(qp, Sk - 1)
+    hi = (torch.clamp(torch.clamp(qp, min=prefix - 1), max=Sk - 1) if causal
+          else torch.full_like(qp, Sk - 1))
     lo = torch.clamp(qp - window + 1, min=0) if window else torch.zeros_like(qp)
     n = (hi - lo + 1).to(torch.float64)
     odd = (hi - lo + 1) % 2 == 1

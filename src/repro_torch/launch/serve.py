@@ -37,11 +37,15 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
           new_tokens: int = 32, temperature: float = 0.0, seed: int = 0,
           device: str | torch.device = "cuda", params: Optional[Any] = None,
           prompts: Optional[torch.Tensor] = None,
+          prefix_embed: Optional[torch.Tensor] = None,
           log: Callable[[str], None] = print,
           phase: Callable[[str], ContextManager[Any]] = _no_phase,
           sink: Optional[Any] = None) -> dict:
     """Serve `batch` prompts of `prompt_len` tokens and generate `new_tokens`
     tokens each. Parameters and prompts are made from `seed` unless given.
+    `prefix_embed` (B, P, d_model), precomputed frontend embeddings
+    (paligemma's patches), goes before each prompt; the command line passes
+    none, as the reference's does.
     `phase(name)` is entered around the timed prefill ("prefill") and the
     decode loop ("decode"), e.g. to trace each with a profiler. With an
     in-transit `sink`, each decode step's latency (ms, float32) is staged
@@ -54,8 +58,10 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
     model = Model(cfg)
     setup = ServeSetup(model)
     B, S, N = batch, prompt_len, new_tokens
+    P = 0 if prefix_embed is None else prefix_embed.shape[1]
     log(f"[serve] {cfg.name}: {cfg.param_count() / 1e6:.1f}M params, "
-        f"{cfg.n_layers} layers on {dev}, batch {B} x prompt {S} + {N} new")
+        f"{cfg.n_layers} layers on {dev}, batch {B} x prompt "
+        f"{f'{P} prefix + ' if P else ''}{S} + {N} new")
     with torch.inference_mode():
         if params is None:
             params = model.init(seed, dev)
@@ -64,7 +70,10 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
         if prompts is None:
             prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                                     device=dev)
-        prefill = setup.prefill_fn(max_len=S + N)
+        prefill = setup.prefill_fn(max_len=P + S + N)
+        prompt_batch = {"tokens": prompts}
+        if prefix_embed is not None:
+            prompt_batch["prefix_embed"] = prefix_embed
         decode = setup.decode_fn()
 
         def sample(lg):
@@ -76,7 +85,7 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
         _sync(dev)
         with phase("prefill"):
             t0 = time.perf_counter()
-            logits, cache = prefill(params, {"tokens": prompts})
+            logits, cache = prefill(params, prompt_batch)
             first_logits = logits
             tok = sample(logits)
             _sync(dev)
@@ -84,7 +93,8 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
         out, lat = [tok], []
         with phase("decode"):
             for i in range(N - 1):
-                pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+                pos = torch.full((B,), P + S + i, dtype=torch.int32,
+                                 device=dev)
                 t1 = time.perf_counter()
                 logits, cache = decode(params, cache,
                                        {"tokens": tok, "pos": pos})

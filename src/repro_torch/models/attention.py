@@ -1,6 +1,9 @@
-"""Attention block, the port of ``repro/models/attention.py`` for the
-dense/local/global kinds: GQA projections, RoPE, prefill through the
-flash-attention wrapper, one-token decode against a KV cache.
+"""Attention block, the port of ``repro/models/attention.py`` (the dense,
+local and global kinds, and a moe layer's attention, which is global): GQA
+projections with optional biases, optional q/k RMS norms, RoPE, prefill
+through the flash-attention wrapper (with the prefix-LM prefix on every
+layer but the local ones, as the reference passes it), one-token decode
+against a KV cache.
 """
 from __future__ import annotations
 
@@ -10,7 +13,9 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import gqa_attention
 from repro_torch.models import kvcache
-from repro_torch.models.layers import ParamSpec, dense, rope, softcap
+from repro_torch.models.layers import (
+    ParamSpec, dense, rms_norm, rope, softcap,
+)
 
 NEG_INF = -2.0e38
 
@@ -19,12 +24,20 @@ def attn_specs(cfg) -> dict[str, ParamSpec]:
     """Projections stored flattened (M, H*D), as the reference stores them."""
     M, Hq, Hkv, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pdt = cfg.param_dtype
-    return {
+    specs = {
         "wq": ParamSpec((M, Hq * D), pdt),
         "wk": ParamSpec((M, Hkv * D), pdt),
         "wv": ParamSpec((M, Hkv * D), pdt),
         "wo": ParamSpec((Hq * D, M), pdt),
     }
+    if cfg.qkv_bias:
+        specs["bq"] = ParamSpec((Hq * D,), pdt, init="zeros")
+        specs["bk"] = ParamSpec((Hkv * D,), pdt, init="zeros")
+        specs["bv"] = ParamSpec((Hkv * D,), pdt, init="zeros")
+    if cfg.qk_norm:   # f32 whatever the param dtype, as the reference declares
+        specs["q_norm"] = ParamSpec((D,), init="ones")
+        specs["k_norm"] = ParamSpec((D,), init="ones")
+    return specs
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -53,7 +66,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def attention(params: dict, x: torch.Tensor, *, cfg, kind: str,
               positions: torch.Tensor, cache: Optional[dict] = None,
               return_cache: bool = False, cache_len: int = 0):
-    """kind: dense|global|local. x: (B,S,M). positions: (B,S) absolute.
+    """kind: dense|global|local (a moe layer's attention is global). x:
+    (B,S,M). positions: (B,S) absolute.
 
     Prefill (cache None): returns (y, new_cache or None).
     Decode (cache given, S == 1): returns (y, cache updated in place).
@@ -64,9 +78,17 @@ def attention(params: dict, x: torch.Tensor, *, cfg, kind: str,
     window = cfg.attn_window if kind == "local" else 0
     theta = cfg.rope_theta if kind != "local" else min(cfg.rope_theta, 10_000.0)
 
-    q = dense(x, params["wq"]).reshape(B, S, Hq, D)
-    k = dense(x, params["wk"]).reshape(B, S, Hkv, D)
-    v = dense(x, params["wv"]).reshape(B, S, Hkv, D)
+    q, k, v = (dense(x, params[w]) for w in ("wq", "wk", "wv"))
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    q = q.reshape(B, S, Hq, D)
+    k = k.reshape(B, S, Hkv, D)
+    v = v.reshape(B, S, Hkv, D)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
     q = rope(q, positions, theta)
     k = rope(k, positions, theta)
 
@@ -81,8 +103,13 @@ def attention(params: dict, x: torch.Tensor, *, cfg, kind: str,
             cache_positions=new_cache["pos"], scale=scale,
             cap=cfg.attn_softcap, window=window)
     else:
+        # the prefix-LM prefix binds on every prefill but a local layer's,
+        # with or without prefix embeddings (the reference's rule); decode
+        # sees every cached key up to its own position anyway
+        prefix = (cfg.n_prefix if cfg.prefix_bidirectional and not window
+                  else 0)
         o = gqa_attention(q, k, v, scale=scale, softcap=cfg.attn_softcap,
-                          causal=True, window=window)
+                          causal=True, window=window, prefix=prefix)
         new_cache = None
         if return_cache:
             new_cache = kvcache.cache_from_prefill(k, v, positions,

@@ -1,5 +1,6 @@
-"""KV and state caches for decode, the attention and mamba parts of
-``repro/models/kvcache.py``.
+"""KV and state caches for decode, the port of ``repro/models/kvcache.py``:
+attention caches (a moe layer's attention too), and the mamba and RG-LRU
+state caches.
 
 Caches hold the absolute position of each slot, so local layers use a ring
 (slot = pos % window) with the same insert path as global layers; an empty
@@ -33,9 +34,21 @@ def mamba_cache_specs(cfg, B: int) -> dict[str, ParamSpec]:
     }
 
 
+def rglru_cache_specs(cfg, B: int) -> dict[str, ParamSpec]:
+    """conv: the last K-1 conv inputs in the compute dtype; h: the f32 state."""
+    dr = cfg.d_rnn
+    return {
+        "conv": ParamSpec((B, cfg.rglru.d_conv - 1, dr), cfg.compute_dtype,
+                          init="zeros"),
+        "h": ParamSpec((B, dr), torch.float32, init="zeros"),
+    }
+
+
 def layer_cache_specs(cfg, kind: str, B: int, T: int) -> dict[str, ParamSpec]:
     if kind == "mamba":
         return mamba_cache_specs(cfg, B)
+    if kind == "rglru":
+        return rglru_cache_specs(cfg, B)
     return attn_cache_specs(cfg, B, T, kind)
 
 

@@ -1,5 +1,5 @@
 """Public model API: init / loss / prefill / decode, the port of
-``repro/models/model.py`` for the attention and mamba kinds.
+``repro/models/model.py`` for every architecture of the registry.
 
 The loss is a sequence-chunked cross-entropy: the full (B, S, V) logits are
 never made (V is 256000 for gemma2), and each chunk's unembed is recomputed
@@ -8,7 +8,7 @@ reference puts ``jax.checkpoint``)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -44,7 +44,8 @@ class Model:
         reference does), so this changes no result; it saves that cast on
         every step. Norm scales and biases (1-D) stay in the param dtype,
         and so does every parameter whose spec says ``keep_dtype`` (mamba's
-        ``A_log`` and ``D``, declared and used in f32)."""
+        ``A_log`` and ``D``, the MoE router and RG-LRU's ``lam``, declared
+        and used in f32)."""
         cdt = to_dtype(self.cfg.compute_dtype)
 
         def cast(spec, t):
@@ -69,26 +70,36 @@ class Model:
 
     # -- forward ----------------------------------------------------------
     def loss_fn(self, params: Tree, batch: dict, xent_chunk: int = 512):
-        """batch: tokens/targets/loss_mask (B,S). Returns (loss, metrics):
-        loss = nll + 1e-4 z2 + 1e-2 moe_lb + 1e-3 moe_z, metrics {nll, z2,
-        moe_lb, moe_z} as f32 scalars."""
+        """batch: tokens/targets/loss_mask (B,S) [+ prefix_embed (B,P,M)].
+        Returns (loss, metrics): loss = nll + 1e-4 z2 + 1e-2 moe_lb +
+        1e-3 moe_z, metrics {nll, z2, moe_lb, moe_z} as f32 scalars. With
+        prefix embeddings the loss is on the text positions only."""
         cfg = self.cfg
-        if "prefix_embed" in batch:
-            raise NotImplementedError(
-                "prefix embeddings (the vlm/audio frontends) are not ported")
-        hidden, aux, _ = tfm.apply_transformer(params, batch["tokens"], cfg=cfg)
+        prefix = batch.get("prefix_embed")
+        if prefix is not None and prefix.shape[1] != cfg.n_prefix:
+            # the reference fails on the shapes here: the loss would be
+            # taken on the wrong positions
+            raise ValueError(f"prefix_embed holds {prefix.shape[1]} positions; "
+                             f"{cfg.name} takes n_prefix={cfg.n_prefix}")
+        hidden, aux, _ = tfm.apply_transformer(
+            params, batch["tokens"], cfg=cfg, prefix_embed=prefix)
+        if cfg.n_prefix and "prefix_embed" in batch:
+            hidden = hidden[:, cfg.n_prefix:]
         nll, z2 = _chunked_xent(params, hidden, batch["targets"],
                                 batch["loss_mask"], cfg, xent_chunk)
-        aux = {k: torch.tensor(v, dtype=torch.float32, device=nll.device)
+        aux = {k: torch.as_tensor(v, dtype=torch.float32, device=nll.device)
                for k, v in aux.items()}
         loss = nll + 1e-4 * z2 + 1e-2 * aux["moe_lb"] + 1e-3 * aux["moe_z"]
         return loss, {"nll": nll, "z2": z2, **aux}
 
-    def prefill(self, params: Tree, tokens: torch.Tensor, max_len: int = 0):
-        """Returns (last_token_logits (B,V), cache). max_len = cache
-        capacity (>= prompt length; gives decode headroom)."""
+    def prefill(self, params: Tree, tokens: torch.Tensor,
+                prefix_embed: Optional[torch.Tensor] = None, max_len: int = 0):
+        """Returns (last_token_logits (B,V), cache). ``prefix_embed``
+        (B,P,M) goes before the tokens. max_len = cache capacity (>= P +
+        prompt length; gives decode headroom)."""
         hidden, _, cache = tfm.apply_transformer(
-            params, tokens, cfg=self.cfg, return_cache=True, cache_len=max_len)
+            params, tokens, cfg=self.cfg, prefix_embed=prefix_embed,
+            return_cache=True, cache_len=max_len)
         logits = tfm.logits_from_hidden(params, hidden[:, -1:], self.cfg)
         return logits[:, 0], cache
 

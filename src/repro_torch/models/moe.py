@@ -1,0 +1,125 @@
+"""Mixture-of-Experts with capacity-based top-k dispatch (llama4 / arctic),
+the port of ``repro/models/moe.py`` on one device.
+
+GShard-style grouped dispatch, as the reference computes it: tokens grouped
+by sequence (prefill, training) or into a single group (decode), routed in
+f32, each token's top-k experts given a 1-based position in the expert's
+queue by an in-group cumsum in token-major order, slots past the capacity
+dropped (a dropped token reaches the output through the residual only),
+a gather to a dense (G, E, C, M) tensor, the expert products, and an f32
+scatter-add combine. The reference computes the expert products outside
+any Pallas kernel (XLA's einsum), so here they are ``torch.einsum``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import ACTS, ParamSpec, mlp, mlp_specs
+
+
+def moe_specs(cfg) -> dict:
+    m = cfg.moe
+    M, E, Fe = cfg.d_model, m.n_experts, m.d_expert
+    pdt = cfg.param_dtype
+    specs: dict = {
+        # routing is f32 whatever the param dtype (the reference declares
+        # the router f32 and routes in f32): a bf16 router would flip
+        # near-tie routings, so it is never cast to the compute dtype
+        "router": ParamSpec((M, E), torch.float32, keep_dtype=True),
+        "wi": ParamSpec((E, M, Fe), pdt),
+        "wo": ParamSpec((E, Fe, M), pdt),
+    }
+    if cfg.mlp_glu:
+        specs["wg"] = ParamSpec((E, M, Fe), pdt)
+    if m.shared_expert:
+        specs["shared"] = mlp_specs(M, Fe, cfg.mlp_glu, pdt)
+    if m.dense_residual:
+        specs["dense"] = mlp_specs(M, cfg.d_ff, cfg.mlp_glu, pdt)
+    return specs
+
+
+def capacity(T: int, k: int, E: int, factor: float) -> int:
+    """Slots an expert has in a group of T tokens."""
+    return max(1, math.ceil(T * k / E * factor))
+
+
+def route(router: torch.Tensor, xg: torch.Tensor, *, top_k: int,
+          capacity_factor: float) -> dict:
+    """Routing and the dispatch plan of tokens xg (G, T, M), in f32.
+
+    Returns the router ``logits`` and ``probs`` (G, T, E); ``onehot``
+    (G, T*k, E), each token's k choices in token-major order; the capacity
+    ``C``; ``token_for_slot`` (G, E*C), the token each expert slot takes
+    (0 where the slot is empty); ``w_for_slot`` (G, E*C), its renormalised
+    top-k weight (0 where empty); and ``dropped`` (G,), the choices past
+    their expert's capacity in each group."""
+    G, T, _ = xg.shape
+    E, k = router.shape[1], top_k
+    C = capacity(T, k, E, capacity_factor)
+    logits = xg.float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, k, dim=-1)                   # (G,T,k)
+    top_w = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    flat_e = top_e.reshape(G, T * k)
+    oh = F.one_hot(flat_e, E)                                     # (G,Tk,E)
+    pos = (oh.cumsum(dim=1) * oh).sum(-1)                         # 1-based
+    keep = (pos >= 1) & (pos <= C)
+    # slot E*C is the drop slot: a spare column, cut off below
+    slot = torch.where(keep, flat_e * C + (pos - 1), E * C)
+    tok = torch.arange(T, device=xg.device).repeat_interleave(k)
+    token_for_slot = torch.zeros((G, E * C + 1), dtype=torch.long,
+                                 device=xg.device)
+    token_for_slot.scatter_(1, slot, tok.expand(G, T * k))
+    w_for_slot = torch.zeros((G, E * C + 1), dtype=torch.float32,
+                             device=xg.device)
+    w_for_slot.scatter_(1, slot, top_w.reshape(G, T * k))
+    return {"logits": logits, "probs": probs, "onehot": oh, "C": C,
+            "token_for_slot": token_for_slot[:, :E * C],
+            "w_for_slot": w_for_slot[:, :E * C],
+            "dropped": (~keep).sum(-1)}
+
+
+def moe_block(params: dict, x: torch.Tensor, *, cfg):
+    """x: (B,S,M). Returns (y, aux losses {"moe_lb", "moe_z"} as f32
+    scalars)."""
+    m = cfg.moe
+    B, S, M = x.shape
+    E, k = m.n_experts, m.top_k
+    xg = x.reshape(1, B, M) if S == 1 else x   # decode: one group of B tokens
+    G, T, _ = xg.shape
+    plan = route(params["router"], xg, top_k=k,
+                 capacity_factor=m.capacity_factor)
+    C, token_for_slot = plan["C"], plan["token_for_slot"]
+
+    # expert compute
+    g_idx = torch.arange(G, device=x.device)[:, None]
+    xe = xg[g_idx, token_for_slot].reshape(G, E, C, M)
+    h = torch.einsum("gecm,emf->gecf", xe, params["wi"].to(xe.dtype))
+    a = ACTS[cfg.mlp_act](h)
+    if "wg" in params:
+        a = a * torch.einsum("gecm,emf->gecf", xe, params["wg"].to(xe.dtype))
+    ye = torch.einsum("gecf,efm->gecm", a, params["wo"].to(xe.dtype))
+
+    # combine: an f32 scatter-add, dropped and empty slots carrying weight 0
+    contrib = plan["w_for_slot"][..., None] * ye.reshape(G, E * C, M).float()
+    rows = (g_idx * T + token_for_slot).reshape(-1)
+    y = torch.zeros((G * T, M), dtype=torch.float32, device=x.device)
+    y = y.index_add(0, rows, contrib.reshape(G * E * C, M))
+    y = y.to(x.dtype).reshape(B, S, M)
+
+    # always-on paths
+    if "shared" in params:
+        y = y + mlp(params["shared"], x, cfg.mlp_act)
+    if "dense" in params:
+        y = y + mlp(params["dense"], x, cfg.mlp_act)
+
+    # aux losses
+    frac_tokens = plan["onehot"].float().mean(dim=(0, 1)) * k       # (E,)
+    mean_prob = plan["probs"].mean(dim=(0, 1))
+    lb = E * (frac_tokens * mean_prob).sum() / k
+    zl = torch.logsumexp(plan["logits"], dim=-1).square().mean()
+    return y, {"moe_lb": lb, "moe_z": zl}

@@ -1,5 +1,5 @@
-"""Decoder-stack assembly for the dense/local/global and mamba kinds, the
-port of ``repro/models/transformer.py``.
+"""Decoder-stack assembly for every layer kind (dense, local, global, moe,
+mamba, rglru), the port of ``repro/models/transformer.py``.
 
 The parameter tree keeps the reference's layout: ``embed``, ``final_ln``,
 ``scan/{i:kind}`` for the periods of the layer pattern and ``rem/{j:kind}``
@@ -22,14 +22,15 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import kvcache, ssm as ssm_lib
+from repro_torch.models import kvcache, moe as moe_lib
+from repro_torch.models import rglru as rglru_lib, ssm as ssm_lib
 from repro_torch.models.layers import (
     embed, embed_specs, mlp, mlp_specs, rms_norm, rms_norm_spec, softcap,
     stack_specs, to_dtype, tree_map, unembed, unstack,
 )
 
 
-# no ported kind has experts: the MoE aux losses are always 0
+# the MoE aux losses, summed over the moe layers (0 without any)
 AUX0 = {"moe_lb": 0.0, "moe_z": 0.0}
 
 
@@ -57,9 +58,18 @@ def block_specs(cfg, kind: str) -> dict:
     if kind == "mamba":
         s["mamba"] = ssm_lib.mamba_specs(cfg)
         return s
+    mlp_spec = mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp_glu, cfg.param_dtype)
+    if kind == "rglru":
+        s["rglru"] = rglru_lib.rglru_specs(cfg)
+        s["ln2"] = rms_norm_spec(cfg.d_model, plus)
+        s["mlp"] = mlp_spec
+        return s
     s["attn"] = attn_lib.attn_specs(cfg)
     s["ln2"] = rms_norm_spec(cfg.d_model, plus)
-    s["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp_glu, cfg.param_dtype)
+    if kind == "moe":
+        s["moe"] = moe_lib.moe_specs(cfg)
+    else:
+        s["mlp"] = mlp_spec
     if cfg.post_norms:
         s["ln1_post"] = rms_norm_spec(cfg.d_model, plus)
         s["ln2_post"] = rms_norm_spec(cfg.d_model, plus)
@@ -115,31 +125,47 @@ def unstack_scan_specs(spec_tree: dict, cfg) -> dict:
 def apply_block(kind: str, p: dict, x: torch.Tensor, *, cfg,
                 positions: torch.Tensor, cache: Optional[dict],
                 return_cache: bool, cache_len: int = 0):
+    """One layer. Returns (x, aux, new_cache), aux the layer's MoE losses
+    ({} for every kind but moe)."""
     eps, plus = cfg.norm_eps, cfg.scale_embeddings
     h = rms_norm(x, p["ln1"], eps, plus)
     if kind == "mamba":
         out, new_cache = ssm_lib.mamba_block(
             p["mamba"], h, cfg=cfg, cache=cache, return_cache=return_cache)
-        return x + out, new_cache
+        return x + out, {}, new_cache
+    if kind == "rglru":
+        out, new_cache = rglru_lib.rglru_block(
+            p["rglru"], h, cfg=cfg, cache=cache, return_cache=return_cache)
+        x = x + out
+        x = x + mlp(p["mlp"], rms_norm(x, p["ln2"], eps, plus), cfg.mlp_act)
+        return x, {}, new_cache
     a_out, new_cache = attn_lib.attention(
-        p["attn"], h, cfg=cfg, kind=kind, positions=positions, cache=cache,
-        return_cache=return_cache, cache_len=cache_len)
+        p["attn"], h, cfg=cfg, kind="global" if kind == "moe" else kind,
+        positions=positions, cache=cache, return_cache=return_cache,
+        cache_len=cache_len)
     if cfg.post_norms:
         a_out = rms_norm(a_out, p["ln1_post"], eps, plus)
     x = x + a_out
-    f_out = mlp(p["mlp"], rms_norm(x, p["ln2"], eps, plus), cfg.mlp_act)
+    h2 = rms_norm(x, p["ln2"], eps, plus)
+    aux = {}
+    if kind == "moe":
+        f_out, aux = moe_lib.moe_block(p["moe"], h2, cfg=cfg)
+    else:
+        f_out = mlp(p["mlp"], h2, cfg.mlp_act)
     if cfg.post_norms:
         f_out = rms_norm(f_out, p["ln2_post"], eps, plus)
-    return x + f_out, new_cache
+    return x + f_out, aux, new_cache
 
 
 def apply_stack(params: dict, x: torch.Tensor, *, cfg,
                 positions: torch.Tensor, cache: Optional[dict] = None,
                 return_cache: bool = False, cache_len: int = 0):
-    """Runs all layers in order. Returns (x, new_cache or None)."""
+    """Runs all layers in order. Returns (x, aux, new_cache or None), aux
+    the MoE losses summed over the layers."""
     pat = cfg.layer_pattern
     n_scan, n_rem = _plan(cfg)
     use_cache = cache is not None
+    aux = dict(AUX0)
     new_cache: dict[str, Any] = {
         "scan": {_key(i, k): [] for i, k in enumerate(pat)} if n_scan else {},
         "rem": {}}
@@ -154,9 +180,14 @@ def apply_stack(params: dict, x: torch.Tensor, *, cfg,
 
     def run(kind, p, x, c_in):
         if remat:
-            return torch.utils.checkpoint.checkpoint(
+            out = torch.utils.checkpoint.checkpoint(
                 block, kind, p, x, c_in, use_reentrant=False)
-        return block(kind, p, x, c_in)
+        else:
+            out = block(kind, p, x, c_in)
+        x, block_aux, nc = out
+        for name, val in block_aux.items():
+            aux[name] = aux[name] + val
+        return x, nc
 
     for period in range(n_scan):
         for i, kind in enumerate(pat):
@@ -172,26 +203,31 @@ def apply_stack(params: dict, x: torch.Tensor, *, cfg,
                     cache["rem"][key] if use_cache else None)
         if nc is not None:
             new_cache["rem"][key] = nc
-    return x, (new_cache if (use_cache or return_cache) else None)
+    return x, aux, (new_cache if (use_cache or return_cache) else None)
 
 
 def apply_transformer(params: dict, tokens: torch.Tensor, *, cfg,
                       positions: Optional[torch.Tensor] = None,
+                      prefix_embed: Optional[torch.Tensor] = None,
                       cache: Optional[dict] = None,
                       return_cache: bool = False, cache_len: int = 0):
-    """Returns (hidden (B,S,M), aux, new_cache), aux the reference's MoE
-    losses (0 for every ported kind). Logits are the caller's."""
-    x = embed(params["embed"], tokens, cfg.scale_embeddings,
-              to_dtype(cfg.compute_dtype))
+    """Returns (hidden (B,S_total,M), aux, new_cache), aux the MoE losses
+    summed over the layers. ``prefix_embed`` (B,P,M), precomputed frontend
+    embeddings (paligemma's patches), goes before the embedded tokens, so
+    S_total = P + S. Logits are the caller's."""
+    cdt = to_dtype(cfg.compute_dtype)
+    x = embed(params["embed"], tokens, cfg.scale_embeddings, cdt)
+    if prefix_embed is not None:
+        x = torch.cat([prefix_embed.to(cdt), x], dim=1)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
-    x, new_cache = apply_stack(params, x, cfg=cfg, positions=positions,
-                               cache=cache, return_cache=return_cache,
-                               cache_len=cache_len)
+    x, aux, new_cache = apply_stack(params, x, cfg=cfg, positions=positions,
+                                    cache=cache, return_cache=return_cache,
+                                    cache_len=cache_len)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps, cfg.scale_embeddings)
-    return x, dict(AUX0), new_cache
+    return x, aux, new_cache
 
 
 def logits_from_hidden(params: dict, hidden: torch.Tensor, cfg) -> torch.Tensor:

@@ -13,7 +13,9 @@ class ServeSetup:
 
     def prefill_fn(self, max_len: int = 0) -> Callable:
         def prefill(params, batch: dict):
-            return self.model.prefill(params, batch["tokens"], max_len=max_len)
+            return self.model.prefill(params, batch["tokens"],
+                                      prefix_embed=batch.get("prefix_embed"),
+                                      max_len=max_len)
         return prefill
 
     def decode_fn(self) -> Callable:

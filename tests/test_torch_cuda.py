@@ -7,7 +7,7 @@ tests/test_torch_cuda.py``. The plain version runs on the same input values
 in f32, and each output element must lie within
 ``ref.kernel_error_limit``: 2e-5 for f32 (fp32 FMAs against fp32 matmuls
 summed in another order); for bf16 (the tensor-core instance at head dim
-64 and 128, which rounds P to bf16 before P V) 2**-8 * |ref| +
+64, 128 and 256, which rounds P to bf16 before P V) 2**-8 * |ref| +
 2**-8 * (P |V|) + 2e-5, with P |V| the plain version run on |v|. The mask
 probe (q = 0, v = (-1)**k), whose answer is exact, holds bf16 to the tight
 2**-8 * |ref| + 2e-5. The scan's plain version runs the same way, and the kernel's y and h_last
@@ -43,6 +43,15 @@ def cuda_device():
     dict(B=1, Sq=100, Sk=300, Hq=4, Hkv=4, D=16, window=0, cap=0.0, causal=False),
     dict(B=1, Sq=301, Sk=301, Hq=4, Hkv=2, D=128, window=0, cap=0.0, causal=False),
     dict(B=1, Sq=100, Sk=300, Hq=4, Hkv=2, D=64, window=0, cap=30.0, causal=False),
+    # head dim 256 (gemma3, paligemma, recurrentgemma): the 1-stage
+    # tensor-core instance, the FMA instance in f32; the prefix-LM mask
+    dict(B=2, Sq=300, Sk=300, Hq=4, Hkv=1, D=256, window=100, cap=0.0, causal=True),
+    dict(B=1, Sq=200, Sk=200, Hq=8, Hkv=1, D=256, window=0, cap=50.0, causal=True,
+         prefix=70),
+    dict(B=1, Sq=256, Sk=256, Hq=4, Hkv=2, D=128, window=0, cap=0.0, causal=True,
+         prefix=128),
+    dict(B=1, Sq=150, Sk=150, Hq=2, Hkv=1, D=32, window=0, cap=0.0, causal=True,
+         prefix=101),
 ])
 def test_kernel_matches_plain(cuda_device, dtype, case):
     from repro_torch.kernels import LAUNCHES
@@ -55,7 +64,8 @@ def test_kernel_matches_plain(cuda_device, dtype, case):
 
     q, k, v = mk(case["Sq"], case["Hq"]), mk(case["Sk"], case["Hkv"]), \
         mk(case["Sk"], case["Hkv"])
-    kw = dict(softcap=case["cap"], causal=case["causal"], window=case["window"])
+    kw = dict(softcap=case["cap"], causal=case["causal"], window=case["window"],
+              prefix=case.get("prefix", 0))
     before = LAUNCHES["flash_attention"]
     o = ops.gqa_attention(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -77,8 +87,13 @@ def test_kernel_matches_plain(cuda_device, dtype, case):
     dict(B=4, S=4600, Hq=32, Hkv=16, D=128, window=4096, cap=50.0, causal=True),
     dict(B=4, S=4600, Hq=32, Hkv=16, D=128, window=0, cap=50.0, causal=True),
     dict(B=1, S=301, Hq=4, Hkv=2, D=128, window=0, cap=0.0, causal=False),
+    dict(B=1, S=300, Hq=4, Hkv=1, D=256, window=100, cap=0.0, causal=True),
+    dict(B=1, S=300, Hq=8, Hkv=1, D=256, window=0, cap=0.0, causal=True,
+         prefix=129),
+    dict(B=1, S=4600, Hq=8, Hkv=1, D=256, window=0, cap=0.0, causal=True,
+         prefix=256),
 ], ids=["ref1", "ref2", "ref3", "ref4", "serve-local", "serve-global",
-        "ragged-noncausal"])
+        "ragged-noncausal", "d256-window", "d256-prefix", "paligemma-prefix"])
 def test_kernel_mask_probe_is_exact_in_bf16(cuda_device, case):
     """q = 0, v = (-1)**k: every p is 1, so the kernel rounds only its
     output, and one key too many or too few moves a row by at least
@@ -87,10 +102,12 @@ def test_kernel_mask_probe_is_exact_in_bf16(cuda_device, case):
     B, S, Hq, Hkv, D = (case[x] for x in ("B", "S", "Hq", "Hkv", "D"))
     q, k, v = ref.mask_probe(B, S, S, Hq, Hkv, D, dtype=torch.bfloat16,
                              device=cuda_device)
+    prefix = case.get("prefix", 0)
     o = ops.gqa_attention(q, k, v, softcap=case["cap"], causal=case["causal"],
-                          window=case["window"])
+                          window=case["window"], prefix=prefix)
     want = ref.mask_probe_answer(B, S, S, Hq, D, causal=case["causal"],
-                                 window=case["window"], device=cuda_device)
+                                 window=case["window"], prefix=prefix,
+                                 device=cuda_device)
     err = (o.float() - want).abs()
     lim = ref.kernel_error_limit(want, dtype=torch.bfloat16)
     assert bool((err <= lim).all()), float((err / lim).max())

@@ -7,7 +7,10 @@ Tolerances are the reference's own (tests/test_kernels.py): 2e-6 for f32,
 (tests/test_torch_cuda.py, chip_smoke.py); here a torch emulation of its
 bf16 rounding is held to ``ref.kernel_error_limit``, the limit the card
 holds the kernel to, and the mask probe (an input whose answer is exact) is
-shown to catch a mask that is one key off.
+shown to catch a mask that is one key off. The prefix-LM mask (``prefix``,
+which the Pallas kernel lacks) is held against the reference model's
+``make_mask_fn`` through its ``flash_attention_xla``, at the same f32/bf16
+tolerances, and at head dim 256.
 """
 import pytest
 
@@ -18,6 +21,7 @@ import numpy as np  # noqa: E402
 
 from repro.kernels.flash_attention import ops as jops  # noqa: E402
 from repro.kernels.flash_attention import ref as jref  # noqa: E402
+from repro.models.attention import flash_attention_xla, make_mask_fn  # noqa: E402
 from repro_torch.convert import tensor_from_numpy  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402
@@ -98,10 +102,64 @@ def test_plain_chunking_does_not_change_the_result(monkeypatch):
     assert torch.equal(ref.attention_ref(q, k, v, **kw), whole)
 
 
+@pytest.mark.parametrize("D", [16, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("prefix", [1, 17, 40, 64])
+def test_plain_prefix_matches_reference_mask(D, dtype, prefix):
+    """The prefix-LM mask against the reference model's: make_mask_fn(
+    causal, prefix) through flash_attention_xla (its non-local prefill),
+    chunks of 16 so that the prefix crosses chunks; MQA, GQA 4. prefix 64
+    > S: every key is visible."""
+    B, S, Hkv, G = 2, 50, 1, 4
+    (jq, jk, jv), (q, k, v) = _inputs(
+        [(B, S, Hkv * G, D), (B, S, Hkv, D), (B, S, Hkv, D)],
+        getattr(jnp, dtype), prefix)
+    want = flash_attention_xla(
+        jq.reshape(B, S, Hkv, G, D), jk, jv,
+        mask_fn=make_mask_fn(causal=True, window=0, prefix=prefix),
+        scale=D ** -0.5, cap=50.0, chunk_q=16, chunk_k=16)
+    got = ops.gqa_attention(q, k, v, softcap=50.0, causal=True, prefix=prefix)
+    _close(got, want.reshape(B, S, Hkv * G, D), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_pallas_interpret_at_head_dim_256(dtype):
+    """Head dim 256 (gemma3, paligemma, recurrentgemma), causal and under a
+    window, against the reference's Pallas kernel in interpret mode."""
+    B, S, Hq, Hkv, D = 1, 256, 2, 1, 256
+    (jq, jk, jv), (q, k, v) = _inputs(
+        [(B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)], getattr(jnp, dtype), 3)
+    for window in (0, 100):
+        kw = dict(softcap=0.0, causal=True, window=window)
+        _close(ops.gqa_attention(q, k, v, **kw),
+               jops.gqa_attention(jq, jk, jv, impl="pallas", block_q=128,
+                                  block_k=128, interpret=True, **kw), dtype)
+
+
+def test_prefix_never_comes_with_a_window():
+    """The reference gives local layers no prefix; the kernel's checks and
+    the plain version both refuse the combination instead of composing it."""
+    q = torch.zeros(1, 8, 4, 256)
+    kv = torch.zeros(1, 8, 1, 256)
+    kernel.check_inputs(q, kv, kv, causal=True, window=0, prefix=4)
+    kernel.check_inputs(q, kv, kv, causal=True, window=4, prefix=0)
+    with pytest.raises(ValueError, match="window"):
+        kernel.check_inputs(q, kv, kv, causal=True, window=4, prefix=4)
+    with pytest.raises(ValueError, match="prefix"):
+        kernel.check_inputs(q, kv, kv, causal=True, window=0, prefix=-1)
+    with pytest.raises(ValueError, match="window"):
+        ops.gqa_attention(q, kv, kv, window=4, prefix=4)
+    with pytest.raises(ValueError, match="window"):
+        ref.mask_probe_answer(1, 8, 8, 4, 256, causal=True, window=4, prefix=4)
+
+
 def test_kernel_rejects_what_it_does_not_take():
     q = torch.zeros(1, 8, 4, 64)
     kv = torch.zeros(1, 8, 2, 64)
     kernel.check_inputs(q, kv, kv, causal=True, window=0)      # accepted
+    for d in (16, 32, 128, 256):                                 # head dims
+        kernel.check_inputs(torch.zeros(1, 8, 4, d), torch.zeros(1, 8, 2, d),
+                            torch.zeros(1, 8, 2, d), causal=True, window=0)
     bad = [
         (torch.zeros(1, 8, 4, 48), torch.zeros(1, 8, 2, 48)),  # head dim
         (q.double(), kv.double()),                              # dtype
@@ -129,7 +187,7 @@ def test_wrapper_has_no_fallback_off_the_cpu():
 
 
 def _emulate_tensor_core_kernel(q, k, v, *, groups, scale, softcap, causal,
-                                window, block_k=64):
+                                window, prefix=0, block_k=64):
     """The bf16 tensor-core kernel's arithmetic, in torch on the CPU:
     head-major q (BHq, Sq, D), k/v (BHkv, Sk, D) in bf16; f32 scores,
     64-key tiles, an online softmax in f32, each p rounded to bf16 before
@@ -152,6 +210,7 @@ def _emulate_tensor_core_kernel(q, k, v, *, groups, scale, softcap, causal,
             vis &= kp <= qp
         if window:
             vis &= qp - kp < window
+        vis |= kp < prefix
         s = torch.where(vis, s, -torch.inf)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         p = torch.exp(s - m_new)
@@ -162,7 +221,10 @@ def _emulate_tensor_core_kernel(q, k, v, *, groups, scale, softcap, causal,
     return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("cfg", REF_CASES)
+@pytest.mark.parametrize("cfg", REF_CASES + [
+    dict(B=1, S=200, Hq=4, Hkv=1, D=256, window=0, cap=0.0, causal=True,
+         prefix=70),
+    dict(B=1, S=200, Hq=4, Hkv=1, D=256, window=90, cap=50.0, causal=True)])
 def test_tensor_core_rounding_stays_within_the_kernel_limit(cfg):
     """At the reference's four cases the emulated kernel lies within
     kernel_error_limit of the plain version in f32; without its P V term
@@ -171,7 +233,8 @@ def test_tensor_core_rounding_stays_within_the_kernel_limit(cfg):
     _, (q, k, v) = _inputs([(B * Hq, S, D), (B * Hkv, S, D), (B * Hkv, S, D)],
                            jnp.bfloat16, 7)
     kw = dict(groups=Hq // Hkv, scale=D ** -0.5, softcap=cfg["cap"],
-              causal=cfg["causal"], window=cfg["window"])
+              causal=cfg["causal"], window=cfg["window"],
+              prefix=cfg.get("prefix", 0))
     got = _emulate_tensor_core_kernel(q, k, v, **kw).float()
     want = ref.attention_ref(q.float(), k.float(), v.float(), **kw)
     pv_abs = ref.attention_ref(q.float(), k.float(), v.float().abs(), **kw)
@@ -180,6 +243,44 @@ def test_tensor_core_rounding_stays_within_the_kernel_limit(cfg):
                                                dtype=torch.bfloat16)).all())
     assert not bool((err <= ref.kernel_error_limit(
         want, dtype=torch.bfloat16)).all())
+
+
+PREFIX_PROBE_CASES = [(1, 300, 300, 8, 1, 256, 129), (2, 100, 100, 4, 2, 16, 37),
+                      (1, 64, 64, 2, 1, 256, 64), (1, 50, 80, 2, 1, 16, 70)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,prefix", PREFIX_PROBE_CASES)
+def test_mask_probe_answer_under_a_prefix(B, Sq, Sk, Hq, Hkv, D, prefix):
+    """The probe's answer learns the prefix: the plain version gives it
+    exactly, and the emulated tensor-core kernel within the tight limit."""
+    q, k, v = ref.mask_probe(B, Sq, Sk, Hq, Hkv, D)
+    want = ref.mask_probe_answer(B, Sq, Sk, Hq, D, causal=True, window=0,
+                                 prefix=prefix)
+    o = ops.gqa_attention_ref(q, k, v, causal=True, prefix=prefix)
+    assert torch.equal(o, want)
+    bh = lambda x: x.transpose(1, 2).reshape(-1, x.shape[1], D)  # noqa: E731
+    emu = _emulate_tensor_core_kernel(
+        bh(q).bfloat16(), bh(k).bfloat16(), bh(v).bfloat16(), groups=Hq // Hkv,
+        scale=D ** -0.5, softcap=0.0, causal=True, window=0, prefix=prefix)
+    emu = emu.reshape(B, Hq, Sq, D).transpose(1, 2).float()
+    assert bool(((emu - want).abs() <= ref.kernel_error_limit(
+        want, dtype=torch.bfloat16)).all())
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,prefix",
+                         [c for c in PREFIX_PROBE_CASES if c[-1] < c[2]])
+@pytest.mark.parametrize("off", [1, -1])
+def test_mask_probe_catches_a_prefix_one_key_off(B, Sq, Sk, Hq, Hkv, D,
+                                                 prefix, off):
+    """A prefix one key longer or shorter than asked breaks the probe's
+    tight limit on the rows before the prefix's end."""
+    q, k, v = ref.mask_probe(B, Sq, Sk, Hq, Hkv, D)
+    want = ref.mask_probe_answer(B, Sq, Sk, Hq, D, causal=True, window=0,
+                                 prefix=prefix)
+    qp, kp = torch.arange(Sq)[:, None], torch.arange(Sk)[None, :]
+    o = _dense_with_mask(q, k, v, (kp <= qp) | (kp < prefix + off))
+    lim = ref.kernel_error_limit(want, dtype=torch.bfloat16)
+    assert float(((o - want).abs() / lim).max()) > 4
 
 
 PROBE_CASES = [(2, 256, 256, 4, 2, 64, True, 0), (1, 512, 512, 8, 1, 128, True, 0),

@@ -26,7 +26,8 @@ PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "torch_simulation_intransit.py",
     ROOT / "examples" / "torch_train_with_intransit.py",
-    ROOT / "examples" / "torch_quickstart.py"]
+    ROOT / "examples" / "torch_quickstart.py",
+    ROOT / "examples" / "torch_serve_batched.py"]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
@@ -284,6 +285,42 @@ def test_serve_module_runs_falcon_mamba_on_the_cpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert "falcon-mamba-7b-smoke" in r.stdout and "decode p50" in r.stdout
+
+
+ARCH_IDS = ("llama4-maverick-400b-a17b", "arctic-480b", "recurrentgemma-9b",
+            "musicgen-medium", "paligemma-3b", "qwen2-72b", "granite-34b",
+            "gemma2-27b", "gemma3-4b", "falcon-mamba-7b")
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_serve_cli_runs_every_architecture_on_the_cpu(arch, capsys):
+    """``--arch <id> --smoke --device cpu`` for each of the reference's ten
+    architectures (a 36-token prompt: past the smoke window of 32)."""
+    from repro_torch.configs import ARCH_IDS as registered
+    from repro_torch.launch.serve import main
+    assert set(registered) == set(ARCH_IDS)
+    main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+          "--prompt-len", "36", "--new-tokens", "3"])
+    out = capsys.readouterr().out
+    assert f"{arch}-smoke" in out and "decode p50" in out
+
+
+def test_serve_batched_twin_runs_on_the_cpu_without_jax():
+    """``examples/torch_serve_batched.py --device cpu`` (qwen2-72b smoke)
+    with jax, ml_dtypes and repro blocked ends with ``OK``, as the
+    reference's serve_batched.py does."""
+    prog = ("import runpy, sys\n"
+            f"for name in {FORBIDDEN!r}:\n"
+            "    sys.modules[name] = None\n"
+            "sys.argv = ['serve_batched', '--device', 'cpu']\n"
+            f"runpy.run_path({str(ROOT / 'examples' / 'torch_serve_batched.py')!r},"
+            " run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", prog], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert r.stdout.splitlines()[-1] == "OK"
+    assert "generated token ids (batch 0)" in r.stdout
 
 
 def test_quickstart_twin_runs_on_the_cpu_without_jax():

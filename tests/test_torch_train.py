@@ -144,7 +144,9 @@ def test_loss_and_grads_match_reference(n_layers, compute_dtype, loss_rtol,
 
 def test_loss_without_mask_and_prefix_raises():
     """An all-zero mask divides by the floor 1, not by 0; prefix embeddings
-    (the vlm/audio frontends) are not ported."""
+    for a config without ``n_prefix`` (gemma2) raise, as the reference fails
+    there on the shapes (tests/test_torch_archs.py holds the prefix-LM loss
+    of paligemma against the reference)."""
     _, tc = _configs(3)
     tm = Model(tc)
     p = tm.init(seed=0, device=CPU)
@@ -152,7 +154,7 @@ def test_loss_without_mask_and_prefix_raises():
     b["loss_mask"] = torch.zeros_like(b["loss_mask"])
     loss, m = tm.loss_fn(p, b)
     assert float(loss) == float(m["nll"]) == float(m["z2"]) == 0.0
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="n_prefix"):
         tm.loss_fn(p, {**b, "prefix_embed": torch.zeros(B, 4, 64)})
 
 
@@ -170,9 +172,9 @@ def test_remat_and_the_flash_function_in_a_train_step(monkeypatch):
         launches.append(q.shape)
         return fa_ops.gqa_attention_ref(q, k, v, **kw)
 
-    def through_function(q, k, v, *, scale, softcap, causal, window):
+    def through_function(q, k, v, *, scale, softcap, causal, window, prefix):
         return fa_ops.FlashAttention.apply(q, k, v, scale, softcap, causal,
-                                           window)
+                                           window, prefix)
 
     monkeypatch.setattr(fa_kernel, "flash_attention", plain_launch)
     _, tc = _configs(4)

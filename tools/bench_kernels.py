@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the selective-scan and pack kernels on one GPU, at the shapes the
-port's paths give them.
+"""Time the selective-scan, pack and flash-attention kernels on one GPU, at
+the shapes the port's paths give them.
 
-    python3 tools/bench_kernels.py [--src DIR] [--reps N] [--kernels scan,pack]
+    python3 tools/bench_kernels.py [--src DIR] [--reps N] [--kernels scan,pack,flash]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` kernels are
 built and timed (default: this checkout's), so that two versions can be
@@ -15,7 +15,12 @@ blocks and scales byte for byte. Shapes:
     as the model's x_proj output gives them;
   * pack: the paper's 201x501x501 mesh as int8 codec blocks of 4096, the
     seismic field at step 7 (6.7% of its values subnormal) and normal
-    values.
+    values;
+  * flash: bf16, B=4 S=4600: gemma2-27b's global and local layers (Hq 32,
+    Hkv 16, D 128, window 4096) at softcap 50 and 0; where the version
+    takes head dim 256 and a prefix, recurrentgemma-9b's local layer (Hq 16,
+    Hkv 1, window 2048) and paligemma-3b's (Hq 8, Hkv 1, prefix 256). Each
+    is held to ``kernel_error_limit`` against the plain version first.
 Prints the card (name, power limit) and, as its last line, a JSON object of
 times in ms (CUDA events over ``--reps`` launches after a warm-up).
 """
@@ -29,6 +34,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 SCAN_SHAPE = dict(B=4, S=4600, di=8192, N=16, dt_rank=256)
+FLASH_SHAPES = {  # name: (Hq, Hkv, D, scale, softcap, window, prefix)
+    "gemma2_global": (32, 16, 128, 144 ** -0.5, 50.0, 0, 0),
+    "gemma2_local": (32, 16, 128, 144 ** -0.5, 50.0, 4096, 0),
+    "gemma2_global_cap0": (32, 16, 128, 144 ** -0.5, 0.0, 0, 0),
+    "gemma2_local_cap0": (32, 16, 128, 144 ** -0.5, 0.0, 4096, 0),
+    "rglru_local_d256": (16, 1, 256, 256 ** -0.5, 0.0, 2048, 0),
+    "paligemma_prefix_d256": (8, 1, 256, 256 ** -0.5, 0.0, 0, 256),
+}
 MESH = dict(nx=201, ny=501, nz=501)
 BLOCK = 4096
 
@@ -38,7 +51,7 @@ def main() -> None:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kernels", default="scan,pack",
-                    help="comma-separated: which of scan, pack to time")
+                    help="comma-separated: which of scan, pack, flash to time")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -77,9 +90,11 @@ def main() -> None:
         torch.cuda.empty_cache()
     if "pack" in kernels:
         pack(out, randn, time_ms, pack_ops.quantize_blocks, pack_blocks_ref, dev)
+    if "flash" in kernels:
+        flash(out, randn, time_ms)
     print(card, flush=True)
     print(json.dumps(out), flush=True)
-    if not all(v for k, v in out.items() if k.endswith("_equal")):
+    if not all(v for k, v in out.items() if k.endswith(("_equal", "_within_limit"))):
         sys.exit("bench_kernels: a kernel disagrees with its plain version")
 
 
@@ -114,6 +129,32 @@ def pack(out, randn, time_ms, quantize_blocks, pack_blocks_ref, dev) -> None:
         out[f"pack_{name}_equal"] = bool(torch.equal(q, q_p) and torch.equal(sc, s_p))
         out[f"pack_{name}_ms"] = time_ms(
             lambda x=x: quantize_blocks(x, block_elems=BLOCK))
+
+
+def flash(out, randn, time_ms) -> None:
+    import inspect
+
+    import torch
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+    takes_prefix = "prefix" in inspect.signature(ops.gqa_attention).parameters
+    B, S = 4, 4600
+    for name, (Hq, Hkv, D, scale, cap, window, prefix) in FLASH_SHAPES.items():
+        if D not in kernel.HEAD_DIMS or (prefix and not takes_prefix):
+            continue
+        q = randn(B, S, Hq, D).to(torch.bfloat16)
+        k, v = (randn(B, S, Hkv, D).to(torch.bfloat16) for _ in range(2))
+        kw = dict(scale=scale, softcap=cap, causal=True, window=window)
+        if prefix:
+            kw["prefix"] = prefix
+        o = ops.gqa_attention(q, k, v, **kw)
+        o_p = ops.gqa_attention_ref(q.float(), k.float(), v.float(), **kw)
+        pv = ops.gqa_attention_ref(q.float(), k.float(), v.float().abs(), **kw)
+        lim = ref.kernel_error_limit(o_p, pv, dtype=torch.bfloat16)
+        out[f"flash_{name}_within_limit"] = bool(((o.float() - o_p).abs() <= lim).all())
+        del o, o_p, pv, lim
+        out[f"flash_{name}_ms"] = time_ms(lambda: ops.gqa_attention(q, k, v, **kw))
+        del q, k, v
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
