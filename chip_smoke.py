@@ -113,7 +113,26 @@ Phases, each of which makes the script exit non-zero when it fails:
      read, and how far one-step nudges of the attention output move
      recurrentgemma's logits. Then the kernel at these cells' attention
      shapes: against its plain version, the mask probe, and its time beside
-     its bound and scaled_dot_product_attention's.
+     its bound and scaled_dot_product_attention's;
+ 11. data-parallel training (``data_parallel_on_the_card``), each rank a
+     process of its own on the card (spawned, gloo groups: NCCL refuses two
+     ranks on one GPU), each rank's step time from CUDA events and its peak
+     memory printed with the card's name and power limit: (a) DP equals one
+     device (``DP_CHECK``: the reference's distributed check, gemma2-27b
+     smoke in f32 at 4 layers so that ZeRO-1 gives each of its two stacked
+     periods to one rank at data 2; at data 4 the reference's rule splits
+     nothing), meshes 1x2x1 and 2x2x1 against the one-device step
+     under the reference's gates, the ranks' params the same bits, the f32
+     DP all-reduce timed; (b) the slice at full width (``TRAIN_DP``:
+     gemma3-4b at published widths, one period of 6 layers, ``remat="full"``,
+     bf16 compute on f32 params, two pods with the int8 error-feedback
+     cross-pod reduce, 1 x 4096 tokens a rank, 4 steps, grads_int8 egress
+     staged by rank 0 through the port's sink, staging and SAVIME): the
+     reduce's quantize (the pack kernel), wire (the ring hop and all-gather
+     with their host copies) and dequantize times and the wire bytes a step;
+     (c) ``repro_torch.launch.train.main`` with
+     ``DP_LAUNCHER_FLAGS`` (gemma2-27b smoke, mesh 2x2x1, compress_pods,
+     grads_int8 egress, 20 steps).
 
 The pack kernel is checked in phase 3 too, byte for byte against its plain
 version (reference cases, the codec's ragged sizes, exact ties, the full
@@ -133,6 +152,37 @@ Phase 8's gates, set before its first run on the card:
   wrote, bit for bit;
 - recovery: loss falls, one restart, SAVIME holds 200 step diagnostics,
   the flash kernel launched 3 layers x 200 steps and the pack kernel 200.
+
+Phase 11's gates, set before its first run on the card:
+- (a) at both steps and meshes, loss within 1e-5 relative and grad_norm
+  1e-4 of the one-device step's; after the first step (LR 0: the
+  reference's own check) every param, and both moments (which hold the
+  reduced gradients), within 1e-4 of their leaf's max; every rank's params
+  bit for bit rank 0's after each step; the flash kernel 4 layers x 2
+  steps a rank. The second step (LR 5e-3) moves the params: each leaf's
+  update is held within 1e-2 (Frobenius, relative) of the one-device
+  update, where an update left out or broadcast from the wrong rank reads
+  1. Its params element by element are read, not gated: the first run on
+  the card gated them at 1e-4 of the leaf's max and read 6.0e-4 at 1x2x1
+  (Adam's step m/sqrt(v) takes the sign of a near-zero gradient element,
+  and that sign follows rounding);
+- (b) step 1's reduced flat equal element for element to the same reduce
+  re-run from the same per-rank input with the pack's plain version
+  quantizing (no pack launch there); for every block, |reduced - the f32
+  mean over the pods of g = flat + err| <= sum over pods of scale_p /
+  (2 n_pods) + scale_requant / 2 + one f32 ulp of the block's max |mean|;
+  the params the same bits on both ranks after every step (two 64-bit
+  checksums of their bits) and at the end (sha256); the pack kernel exactly
+  2 launches a rank a step plus 1 on rank 0 (the egress); the flash kernel
+  6 layers x 2 (remat) a rank a step; the bytes each rank sent and
+  received on the pod wire, counted from its buffers, equal to 2 (n-1)/n R
+  (QBLOCK + 4) a step, R the params' blocks padded to a multiple of the
+  pods (fp32 would move 4 QBLOCK/(QBLOCK + 4) = 3.996 times as much: the
+  wire format's arithmetic, not a reading); finite losses; SAVIME holds 4 diagnostics and
+  4 sets of blocks and scales;
+- (c) the loss falls, SAVIME holds 20 diagnostics, and each rank launched
+  the flash kernel 3 layers x 20 steps and the pack kernel 2 x 20 (rank 0:
+  3 x 20).
 
 The last lines are a JSON summary of the kernels, the card line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -196,6 +246,9 @@ GEMMA_SHAPE = dict(Hq=32, Hkv=16, D=128, scale=(4608 / 32) ** -0.5, cap=50.0)
 RGLRU_ATTN = dict(Hq=16, Hkv=1, D=256, window=2048, cap=0.0, causal=True)
 PREFIX_ATTN = dict(Hq=8, Hkv=1, D=256, window=0, cap=0.0, causal=True, prefix=256)
 MOE_ATTN = dict(Hq=40, Hkv=8, D=128, window=0, cap=0.0, causal=True)
+# phase 11b's gemma3-4b layers (GQA 8/4 at head dim 256, no cap; window
+# 1024 on the local layers), B 1 x S 4096 a rank
+GEMMA3_ATTN = dict(Hq=8, Hkv=4, D=256, cap=0.0, causal=True)
 SERVE = dict(arch="gemma2-27b", batch=4, prompt_len=4600, new_tokens=32,
              n_layers=4, seed=0, kernel="flash_attention",
              reduced="n_layers 46 -> 4 (two local/global periods, stacked "
@@ -281,6 +334,30 @@ FAULT_SPEC = "seed=42;drop:op=stripe,nth=3"
 TRAIN_FLAGS = ["--arch", "gemma2-27b", "--smoke", "--intransit", "--egress",
                "grads_int8", "--channels", "2", "--coalesce-kb", "64",
                "--faults", "seed=7;drop:op=stripe,nth=5", "--steps", "50"]
+# phase 11, data-parallel training with the ranks sharing the card. (a) the
+# reference's own check (tests/distributed_checks.py: gemma2-27b smoke in f32,
+# B 4, S 64, data seed 1) at 4 layers, so that ZeRO-1 splits the two stacked
+# periods at data 2; two steps from a seeded state (the first at LR 0), each
+# mesh against the one-device step under the reference's gates
+DP_CHECK = dict(arch="gemma2-27b", n_layers=4, global_batch=4, seq_len=64,
+                data_seed=1, state_seed=7, steps=2, peak_lr=1e-2, warmup_steps=2,
+                total_steps=10, meshes=((1, 2, 1), (2, 2, 1)))
+DP_LOSS_REL, DP_GNORM_REL, DP_PARAM_REL = 1e-5, 1e-4, 1e-4
+DP_UPDATE_REL = 1e-2       # step 1's update of each leaf, relative Frobenius
+# (b) gemma3-4b at published widths, one period of its pattern, two pods
+# with the int8 error-feedback cross-pod reduce, 1 x 4096 tokens a rank
+TRAIN_DP = dict(arch="gemma3-4b", n_layers=6, pods=2, rows_per_rank=1, seq_len=4096,
+                steps=4, seed=0, peak_lr=3e-4, warmup_steps=1, egress_blocks=64,
+                reduced="n_layers 34 -> 6 (one period: 5 local at window 1024, 1 "
+                        "global): 1,237,386,752 params, whose f32 params, two "
+                        "moments and error-feedback residual take 19.8 GB a rank "
+                        "and the f32 grads and their flat copy 9.9 GB more at the "
+                        "reduce, two ranks on one card. One period is not "
+                        "stacked, so ZeRO-1 finds no dimension to split (the "
+                        "reference's rule) and each rank keeps whole moments")
+DP_LAUNCHER_FLAGS = ["--arch", "gemma2-27b", "--smoke", "--mesh", "2x2x1",
+                     "--compress-pods", "--intransit", "--egress", "grads_int8",
+                     "--steps", "20"]
 
 
 def log(msg: str) -> None:
@@ -755,6 +832,493 @@ def transports_from_the_card(dev, mesh: dict, mem_capacity: int,
     return out
 
 
+# -- phase 11: data-parallel training, the ranks sharing the card ------------------
+# Each rank is a process of its own (``repro_torch.launch.spawn.run_ranks``,
+# spawn start method, gloo groups: NCCL refuses two ranks on one GPU), on
+# cuda:0. The rank functions are this module's, so a rank imports it as
+# ``__mp_main__``; ``sys.path`` (with ``src/``) comes from the parent.
+
+
+def _rank_device():
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def _event():
+    import torch
+    return torch.cuda.Event(enable_timing=True)
+
+
+def _dp_check_setup(dev, mesh, c: dict):
+    """DP_CHECK's model, setup, seeded state and this rank's rows of its
+    global batch (the whole batch without a mesh)."""
+    from repro_torch.data import (DataConfig, SyntheticLM, batch_to_device,
+                                  device_put_batch)
+    from repro_torch.models import Model
+    from repro_torch.train import TrainConfig, TrainSetup
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(c["arch"]).smoke(), n_layers=c["n_layers"],
+                              compute_dtype="float32", param_dtype="float32")
+    setup = TrainSetup(Model(cfg), TrainConfig(
+        peak_lr=c["peak_lr"], warmup_steps=c["warmup_steps"],
+        total_steps=c["total_steps"], egress="none"), mesh)
+    state = setup.init_state(c["state_seed"], dev)
+    batch = next(SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=c["seq_len"],
+                                        global_batch=c["global_batch"],
+                                        seed=c["data_seed"])).batches())
+    batch = (batch_to_device(batch, dev) if mesh is None
+             else device_put_batch(batch, mesh, setup.rules, dev))
+    return setup, state, batch
+
+
+def dp_check_steps(shape) -> dict:
+    """Phase 11a on one rank (``shape`` (pod, data, model); None: one
+    device, in the calling process): DP_CHECK's steps from the seeded
+    state. Returns each step's metrics, CUDA-event time, params and whole
+    moments (reference layout, numpy), the launches, the f32 DP
+    all-reduce's time and the peak memory."""
+    import torch
+    from repro_torch.convert import to_reference_layout
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train import train_step as train_step_mod
+    c = DP_CHECK
+    dev = _rank_device()
+    mesh = None if shape is None else Mesh(shape, ("pod", "data", "model"))
+    setup, state, batch = _dp_check_setup(dev, mesh, c)
+    allreduce_ms = []
+    inner_mean = train_step_mod._dp_mean
+
+    def timed_mean(group, t):
+        if group.size == 1 or t.numel() < 64:     # the metrics' few scalars
+            return inner_mean(group, t)
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = inner_mean(group, t)
+        _sync(dev)
+        allreduce_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    step = setup.step_fn()
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rows = []
+    with swapped(train_step_mod, "_dp_mean", timed_mean):
+        for _ in range(c["steps"]):
+            start, end = _event(), _event()
+            start.record()
+            state, m, _ = step(state, batch)
+            end.record()
+            end.synchronize()
+            whole = setup.whole_state(state)
+            rows.append({"step_ms": start.elapsed_time(end),
+                         **{k: float(v) for k, v in m.items()},
+                         "params": to_reference_layout(state["params"]),
+                         "mu": to_reference_layout(whole["opt"]["mu"]),
+                         "nu": to_reference_layout(whole["opt"]["nu"])})
+    return {"steps": rows, "launches": dict(LAUNCHES), "dp_allreduce_ms": allreduce_ms,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _param_checksums(params) -> tuple[int, int]:
+    """Two 64-bit sums of the params' bits on the card: plain, and weighted
+    by each word's position mod 65521 (a changed or moved word changes
+    them)."""
+    import torch
+    from repro_torch.models.layers import tree_leaves
+    s1 = s2 = 0
+    chunk = 1 << 24
+    for p in tree_leaves(params):
+        words = p.reshape(-1).view(torch.int32)
+        for a in range(0, words.numel(), chunk):
+            w = words[a:a + chunk].to(torch.int64)
+            pos = torch.arange(a, a + w.numel(), device=w.device) % 65521
+            s1 += int(w.sum())
+            s2 += int((w * pos).sum())
+    return s1, s2
+
+
+def _plain_quant(x):
+    """The pack's plain version at the cross-pod block (tile (32, 128)), a
+    few thousand rows at a time (each block quantized on its own)."""
+    import torch
+    from repro_torch.kernels.staging_pack import ref as pack_ref
+    from repro_torch.optim import grad_compress as gc
+    qs, ss = [], []
+    for a in range(0, x.shape[0], gc.CHUNK_ROWS):
+        q, s = pack_ref.pack_blocks_ref(x[a:a + gc.CHUNK_ROWS].reshape(-1, 128),
+                                        tile=(gc.QBLOCK // 128, 128),
+                                        out_dtype=torch.int8)
+        qs.append(q)
+        ss.append(s)
+    return torch.cat(qs), torch.cat(ss)
+
+
+def dp_full_width(pods: int, disk_dir: str) -> dict:
+    """Phase 11b on one rank (one pod): TRAIN_DP at mesh (pods, 1, 1) with
+    compress_pods; rank 0 stages each step's egress through the port's
+    sink, staging and SAVIME. Times each step (CUDA events) and the
+    cross-pod reduce's parts, counts the launches a step, checksums the
+    params a step; keeps step 1's reduce input and output on the host, and
+    after the run re-runs that reduce with the pack's plain version and
+    checks the quantization bound block by block. Returns the readings."""
+    import hashlib
+
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM, device_put_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import stage_egress
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import grad_compress as gc
+    from repro_torch.train import TrainConfig, TrainSetup
+    from repro_torch.train import train_step as train_step_mod
+    c = TRAIN_DP
+    dev = _rank_device()
+    mesh = Mesh((pods, 1, 1), ("pod", "data", "model"))
+    pod = mesh.groups["pod"]
+    cfg = dataclasses.replace(cell_config(c), remat="full")
+    setup = TrainSetup(Model(cfg), TrainConfig(
+        peak_lr=c["peak_lr"], warmup_steps=c["warmup_steps"], total_steps=c["steps"],
+        compress_pods=True, egress="grads_int8", egress_blocks=c["egress_blocks"]),
+        mesh)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=c["seq_len"],
+                                  global_batch=pods * c["rows_per_rank"], seed=c["seed"])
+                       ).batches()
+    batches = [device_put_batch(next(data), mesh, setup.rules, dev)
+               for _ in range(c["steps"])]
+    torch.cuda.reset_peak_memory_stats()
+    state = setup.init_state(c["seed"], dev)
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+
+    parts = {"quantize": [], "dequantize": [], "wire": []}
+
+    def events(name, fn):
+        def timed(*a, **kw):
+            start, end = _event(), _event()
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            parts[name].append((start, end))
+            return out
+        return timed
+
+    def wall(fn):
+        def timed(*a, **kw):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            _sync(dev)
+            parts["wire"].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    def part_ms(name) -> float:
+        _sync(dev)
+        return float(sum(x if isinstance(x, float) else x[0].elapsed_time(x[1])
+                         for x in parts[name]))
+
+    kept = {}
+    inner_reduce = train_step_mod._pod_reduce
+
+    def keeping_reduce(flat, err, group):
+        if "flat" in kept or state_step[0] != 1:
+            return inner_reduce(flat, err, group)
+        kept["flat"] = flat.to("cpu", copy=True)
+        kept["err"] = err.to("cpu", copy=True)
+        out = inner_reduce(flat, err, group)
+        kept["reduced"] = out[0].to("cpu", copy=True)
+        return out
+
+    sink = savime = staging = None
+    if mesh.rank == 0:
+        from repro_torch.core import (InTransitConfig, InTransitSink,
+                                      SavimeServer, StagingServer)
+        savime = SavimeServer().start()
+        staging = StagingServer(savime.addr, disk_dir=disk_dir).start()
+        sink = InTransitSink(staging.addr, InTransitConfig(
+            io_threads=2, tar_prefix="dp", codec="none"))
+    rows, state_step, back = [], [0], None
+    try:
+        step = setup.step_fn()
+        with swapped(gc, "quant_blocks", events("quantize", gc.quant_blocks)), \
+                swapped(gc, "dequant_blocks", events("dequantize", gc.dequant_blocks)), \
+                swapped(train_step_mod, "_ring_hop", wall(train_step_mod._ring_hop)), \
+                swapped(train_step_mod, "_gather_shards",
+                        wall(train_step_mod._gather_shards)), \
+                swapped(train_step_mod, "_pod_reduce", keeping_reduce):
+            _sync(dev)
+            reset_launches()
+            for i, batch in enumerate(batches):
+                state_step[0] = i
+                for v in parts.values():
+                    v.clear()
+                before, wire0 = dict(LAUNCHES), train_step_mod.POD_WIRE["bytes"]
+                start, end = _event(), _event()
+                start.record()
+                state, metrics, egress = step(state, batch)
+                end.record()
+                end.synchronize()
+                row = {"step": i, "step_ms": start.elapsed_time(end),
+                       "loss": float(metrics["loss"]),
+                       "grad_norm": float(metrics["grad_norm"]),
+                       **{f"{k}_ms": part_ms(k) for k in parts},
+                       "wire_bytes": train_step_mod.POD_WIRE["bytes"] - wire0,
+                       "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES},
+                       "param_checksums": _param_checksums(state["params"])}
+                if sink is not None:
+                    stage_egress(sink, egress, int(state["step"]))
+                rows.append(row)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        h = hashlib.sha256()
+        for p in tree_leaves(state["params"]):
+            h.update(p.detach().reshape(-1).view(torch.uint8).cpu().numpy())
+        params_sha = h.hexdigest()
+        if sink is not None:
+            from repro_torch.analysis import AnalysisSession, tar
+            sink.flush(timeout=600)
+            with AnalysisSession(savime.addr) as an:
+                back = {name: list(an.execute(tar(f"dp_{name}").attr("v").select())
+                                   .array.shape)
+                        for name in ("diag", "grad_blocks", "grad_scales")}
+    finally:
+        if sink is not None:
+            sink.close()
+            staging.stop()
+            savime.stop()
+    del state, batches, metrics, egress
+    torch.cuda.empty_cache()
+
+    # step 1's reduce again, from the same input, with the pack's plain
+    # version quantizing; then the bound, block by block, against the f32
+    # mean over the pods of g = flat + err
+    flat, err = kept["flat"].to(dev), kept["err"].to(dev)
+    g_mean = flat + err
+    quant_calls = []
+
+    def plain_recording(x):
+        out = _plain_quant(x)
+        quant_calls.append(out[1])
+        return out
+
+    reset_launches()
+    with swapped(gc, "quant_blocks", plain_recording):
+        plain, _ = train_step_mod._pod_reduce(flat, err, pod)
+    plain_launches = dict(LAUNCHES)
+    reduced = kept["reduced"].to(dev)
+    equal = bool(torch.equal(plain.view(torch.int32), reduced.view(torch.int32)))
+    del flat, err, plain
+    s_pods = torch.stack(pod.all_gather(quant_calls[0]))          # (pods, rows)
+    s_requant = torch.cat(pod.all_gather(quant_calls[1]))          # (rows,)
+    pod.all_reduce_sum(g_mean).div_(torch.full((1, 1), float(pods), device=dev))
+    err_max = torch.empty(reduced.shape[0], device=dev)
+    amax = torch.empty(reduced.shape[0], device=dev)
+    for a in range(0, reduced.shape[0], gc.CHUNK_ROWS):
+        b = a + gc.CHUNK_ROWS
+        err_max[a:b] = (reduced[a:b] - g_mean[a:b]).abs().amax(1)
+        amax[a:b] = g_mean[a:b].abs().amax(1)
+    ulp = torch.from_numpy(np.spacing(amax.cpu().numpy())).to(dev)
+    bound = s_pods.sum(0) / (2 * pods) + s_requant / 2 + ulp
+    ratio = err_max / bound
+    return {"rank": mesh.rank, "n_params": n_params, "steps": rows, "peak_mem_gb": peak_gb,
+            "params_sha256": params_sha, "savime": back,
+            "step1_plain_ring_equal": equal, "plain_ring_launches": plain_launches,
+            "bound_ratio_max": float(ratio.max()),
+            "bound_blocks_over": int((ratio > 1).sum()),
+            "n_blocks": int(reduced.shape[0])}
+
+
+def data_parallel_on_the_card(card: str, disk_dir: Path) -> dict:
+    """Phase 11: (a) DP equals one device, (b) the slice at full width, (c)
+    the launcher at the mesh. Fails on any gate; returns the readings."""
+    from repro_torch.launch.spawn import run_ranks
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.optim import grad_compress as gc
+    dp_check, train_dp = DP_CHECK, TRAIN_DP
+
+    def leaf_rel(want: dict, got: dict) -> dict:
+        out = {}
+        for path, a in _paths(want):
+            b = got
+            for k in path:
+                b = b[k]
+            a64 = np.asarray(a, np.float64)
+            out["/".join(map(str, path))] = float(
+                np.abs(a64 - b).max() / max(np.abs(a64).max(), 1e-30))
+        return out
+
+    def update_rel(w0: dict, w1: dict, g0: dict, g1: dict) -> dict:
+        """Each leaf's update from step 0 to step 1, against one device's:
+        ||(g1 - g0) - (w1 - w0)|| / ||w1 - w0||, Frobenius."""
+        out = {}
+        for (path, a0), (_, a1), (_, b0), (_, b1) in zip(
+                _paths(w0), _paths(w1), _paths(g0), _paths(g1)):
+            dw = np.asarray(a1, np.float64) - a0
+            dg = np.asarray(b1, np.float64) - b0
+            out["/".join(map(str, path))] = float(
+                np.linalg.norm(dg - dw) / max(np.linalg.norm(dw), 1e-30))
+        return out
+
+    def same_bits(a: dict, b: dict) -> bool:
+        pa, pb = _paths(a), _paths(b)
+        return len(pa) == len(pb) and all(
+            x[0] == y[0] and x[1].tobytes() == y[1].tobytes() for x, y in zip(pa, pb))
+
+    def readings(steps: list) -> list:
+        return [{k: v for k, v in st.items() if k not in ("params", "mu", "nu")}
+                for st in steps]
+
+    out = {"card": card}
+    # (a) DP equals one device
+    t0 = time.perf_counter()
+    one = dp_check_steps(None)
+    out["dp_check"] = {"1x1": {"steps": readings(one["steps"]), "launches": one["launches"],
+                               "peak_mem_gb": one["peak_mem_gb"]}}
+    for shape in dp_check["meshes"]:
+        name = "x".join(map(str, shape))
+        got = run_ranks(dp_check_steps, int(np.prod(shape)), shape)
+        r0 = got[0]
+        gates, readings = {}, {}
+        for i, (w, g) in enumerate(zip(one["steps"], r0["steps"])):
+            gates[f"loss_rel_{i}"] = abs(g["loss"] - w["loss"]) / abs(w["loss"])
+            gates[f"grad_norm_rel_{i}"] = abs(g["grad_norm"] - w["grad_norm"]) / abs(w["grad_norm"])
+        # step 0 (LR 0) is the reference's check: params, and the moments,
+        # which hold (1 - b) g and (1 - b) g^2 of the reduced grads
+        w, g = one["steps"][0], r0["steps"][0]
+        gates["param_rel_0"] = max(leaf_rel(w["params"], g["params"]).values())
+        gates["moment_rel_0"] = max(max(leaf_rel(w[m], g[m]).values()) for m in ("mu", "nu"))
+        # step 1 (LR 5e-3) moves the params: its update, leaf by leaf, in
+        # the Frobenius norm against one device's (the ZeRO-1 share update
+        # and the params' gather or broadcast; an update left out or taken
+        # from the wrong rank reads 1). Element by element, Adam's step
+        # m/sqrt(v) takes the sign of a near-zero gradient element, which
+        # follows rounding: that reading has no limit
+        upd = update_rel(one["steps"][0]["params"], one["steps"][1]["params"],
+                         r0["steps"][0]["params"], r0["steps"][1]["params"])
+        worst = max(upd, key=upd.get)
+        gates["update_rel_1"] = upd[worst]
+        readings["update_rel_1_leaf"] = worst
+        last = leaf_rel(one["steps"][-1]["params"], r0["steps"][-1]["params"])
+        worst = max(last, key=last.get)
+        readings["param_rel_last"] = [worst, last[worst]]
+        ranks_equal = all(same_bits(s["params"], t["params"])
+                          for r in got[1:] for s, t in zip(r["steps"], r0["steps"]))
+        want_launches = {"flash_attention": dp_check["n_layers"] * dp_check["steps"],
+                         "ssm_scan": 0, "staging_pack": 0}
+        row = {"gates": gates, "readings": readings, "ranks_params_bit_equal": ranks_equal,
+               "step_ms": [[s["step_ms"] for s in r["steps"]] for r in got],
+               "dp_allreduce_ms": [r["dp_allreduce_ms"] for r in got],
+               "peak_mem_gb": [r["peak_mem_gb"] for r in got],
+               "launches": [r["launches"] for r in got]}
+        out["dp_check"][name] = row
+        log(f"dp 11a, mesh {name} against 1x1 ({dp_check['arch']} smoke "
+            f"n_layers={dp_check['n_layers']} f32, B {dp_check['global_batch']} S "
+            f"{dp_check['seq_len']}; {card}): {json.dumps(row)} (limits: loss "
+            f"{DP_LOSS_REL}, grad_norm {DP_GNORM_REL}, params and moments {DP_PARAM_REL} "
+            f"of each leaf's max, step 1's update {DP_UPDATE_REL})")
+        if not (all(v < DP_LOSS_REL for k, v in gates.items() if k.startswith("loss"))
+                and all(v < DP_GNORM_REL for k, v in gates.items() if k.startswith("grad"))
+                and gates["param_rel_0"] < DP_PARAM_REL
+                and gates["moment_rel_0"] < DP_PARAM_REL
+                and gates["update_rel_1"] < DP_UPDATE_REL and ranks_equal
+                and all(r["launches"] == want_launches for r in got)):
+            fail(f"dp 11a at mesh {name}: {row}, want launches {want_launches} a rank")
+    out["dp_check_s"] = time.perf_counter() - t0
+    log(f"dp 11a done in {out['dp_check_s']:.1f} s")
+
+    # (b) the slice at full width
+    t0 = time.perf_counter()
+    pods = train_dp["pods"]
+    got = run_ranks(dp_full_width, pods, pods, str(disk_dir))
+    cfg = cell_config(train_dp)
+    want_step = [{"flash_attention": cfg.n_layers * 2, "ssm_scan": 0,
+                  "staging_pack": 2 + (r == 0)} for r in range(pods)]
+    n_steps = train_dp["steps"]
+    # the wire a rank a step: n - 1 hops of the reduce-scatter and n - 1
+    # shards of the all-gather, each R / n blocks of QBLOCK int8 values and
+    # a 4 B scale, R the residual's rows (the params' values in blocks,
+    # padded to a multiple of the pods)
+    rows = -(-got[0]["n_params"] // gc.QBLOCK)
+    rows = -(-rows // pods) * pods
+    want_wire = 2 * (pods - 1) * (rows // pods) * (gc.QBLOCK + 4)
+    bad = []
+    for r, g in enumerate(got):
+        if any(s["launches"] != want_step[r] for s in g["steps"]):
+            bad.append(f"rank {r} launches {[s['launches'] for s in g['steps']]}")
+        if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in g["steps"]):
+            bad.append(f"rank {r}: a loss or grad_norm is not finite")
+        if not g["step1_plain_ring_equal"] or g["plain_ring_launches"]["staging_pack"]:
+            bad.append(f"rank {r}: step 1's reduce differs from the plain ring's "
+                       f"(launches {g['plain_ring_launches']})")
+        if g["bound_blocks_over"]:
+            bad.append(f"rank {r}: {g['bound_blocks_over']} blocks past the bound "
+                       f"(max ratio {g['bound_ratio_max']})")
+        if g["n_blocks"] != rows or any(s["wire_bytes"] != want_wire for s in g["steps"]):
+            bad.append(f"rank {r}: {g['n_blocks']} blocks (want {rows}), wire bytes "
+                       f"{[s['wire_bytes'] for s in g['steps']]} a step (want {want_wire})")
+    for i in range(n_steps):
+        if len({tuple(g["steps"][i]["param_checksums"]) for g in got}) != 1:
+            bad.append(f"params differ across ranks after step {i}")
+    if len({g["params_sha256"] for g in got}) != 1:
+        bad.append("the final params differ across ranks")
+    if got[0]["savime"] != {"diag": [n_steps, 2],
+                            "grad_blocks": [n_steps, train_dp["egress_blocks"], 1024],
+                            "grad_scales": [n_steps, train_dp["egress_blocks"]]}:
+        bad.append(f"SAVIME holds {got[0]['savime']}")
+    warm = {r: {k: float(np.median([s[k] for s in g["steps"][2:]]))
+                for k in ("step_ms", "quantize_ms", "wire_ms", "dequantize_ms")}
+            for r, g in enumerate(got)}
+    full = {"config": f"{cfg.name} n_layers={cfg.n_layers} remat=full, mesh {pods}x1x1 "
+                      f"compress_pods, {train_dp['rows_per_rank']} x {train_dp['seq_len']} "
+                      f"tokens a rank",
+            "reduced": train_dp["reduced"], "n_params": got[0]["n_params"],
+            "wire_bytes_a_step": want_wire,
+            "fp32_wire_bytes_a_step": 2 * (pods - 1) * (rows // pods) * gc.QBLOCK * 4,
+            "warm_median_steps_2_3": warm,
+            "ranks": [{k: v for k, v in g.items() if k not in ("params_sha256",)}
+                      for g in got],
+            "seconds": time.perf_counter() - t0}
+    out["full_width"] = full
+    for g in got:
+        for s in g["steps"]:
+            log(f"dp 11b rank {g['rank']} step {s['step']} ({card}): {json.dumps(s)}")
+    log(f"dp 11b ({card}): {full['config']}; {full['n_params']} params; warm (median of "
+        f"steps 2-3) {json.dumps(warm)}; peak memory a rank "
+        f"{[round(g['peak_mem_gb'], 3) for g in got]} GB; step 1 against the plain "
+        f"ring: {[g['step1_plain_ring_equal'] for g in got]}; bound ratio max "
+        f"{[g['bound_ratio_max'] for g in got]} over {got[0]['n_blocks']} blocks "
+        f"(limit 1); SAVIME {got[0]['savime']}; {full['seconds']:.1f} s")
+    if bad:
+        fail(f"dp 11b: {bad}")
+
+    # (c) the launcher at the mesh
+    t0 = time.perf_counter()
+    res = train_main(DP_LAUNCHER_FLAGS)
+    steps = int(DP_LAUNCHER_FLAGS[DP_LAUNCHER_FLAGS.index("--steps") + 1])
+    from repro_torch.configs import get_config
+    smoke = get_config("gemma2-27b").smoke()
+    want = [{"flash_attention": smoke.n_layers * steps, "ssm_scan": 0,
+             "staging_pack": steps * (2 + (r == 0))} for r in range(4)]
+    losses = [m["loss"] for m in res["metrics"]]
+    launcher = {"seconds": time.perf_counter() - t0, "loss_first": losses[0],
+                "loss_last": losses[-1], "diag_rows": int(res["diag"].shape[0]),
+                "launches_by_rank": res["launches_by_rank"], "pod_wire": res["pod_wire"],
+                "restarts": res["restarts"]}
+    out["launcher"] = launcher
+    log(f"dp 11c, repro_torch.launch.train.main {' '.join(DP_LAUNCHER_FLAGS)} ({card}): "
+        f"{json.dumps(launcher)}; want launches {want}")
+    if not (losses[-1] < losses[0] and launcher["diag_rows"] == steps
+            and res["launches_by_rank"] == want):
+        fail(f"dp 11c: {launcher}, want launches {want}")
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repo")
@@ -984,6 +1548,9 @@ def main() -> None:
                    causal=True),
               dict(B=1, Sq=4600, Sk=4600, **RGLRU_ATTN),
               dict(B=1, Sq=4600, Sk=4600, **PREFIX_ATTN)]
+    # phase 11b's shapes: gemma3-4b's local (window 1024) and global layers
+    cases += [dict(B=1, Sq=4096, Sk=4096, window=window, **GEMMA3_ATTN)
+              for window in (1024, 0)]
     worst = {}
     for c in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -2048,6 +2615,23 @@ def main() -> None:
             "logits_max_abs_err", "logits_mean_abs")}
             for a in arch_launches}))
 
+    # -- 11. data-parallel training, the ranks sharing the card --------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    dp = data_parallel_on_the_card(card, disk_dir)
+    log(f"data parallel done in {time.perf_counter() - t11:.1f} s")
+
+    def dp_launches(name: str) -> dict:
+        """A kernel's launches in each phase-11 run, rank by rank."""
+        out = {f"11a {m}": [r[name] for r in row["launches"]]
+               for m, row in dp["dp_check"].items() if m != "1x1"}
+        out["11a 1x1"] = [dp["dp_check"]["1x1"]["launches"][name]]
+        out["11b"] = [sum(st["launches"][name] for st in r["steps"])
+                      for r in dp["full_width"]["ranks"]]
+        out["11c"] = [r[name] for r in dp["launcher"]["launches_by_rank"]]
+        return out
+
     summary = {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
@@ -2059,6 +2643,7 @@ def main() -> None:
         "launches_transports": {k: v["launches"]["flash_attention"]
                                 for k, v in transports.items()},
         "launches_archs": arch_launches,
+        "launches_dp": dp_launches("flash_attention"),
         "shape": (f"B={Bs} S={S} Hq={g['Hq']} Hkv={g['Hkv']} D={g['D']} bf16 "
                   f"causal window=0 cap={g['cap']} (serve global layer)"),
         "max_abs_err": worst["serve_shape"],
@@ -2110,6 +2695,7 @@ def main() -> None:
         "launches_recovery": recovery_launches["staging_pack"],
         "launches_transports": {k: v["launches"]["staging_pack"]
                                 for k, v in transports.items()},
+        "launches_dp": dp_launches("staging_pack"),
         "shape": (f"{mesh_n} f32 values ({MESH['nx']}x{MESH['ny']}x{MESH['nz']} mesh) "
                   f"as ({nb_mesh * PACK_TILE[0]}, {PACK_TILE[1]}), tile {PACK_TILE}, "
                   f"int8 out (every in-transit step with codec int8-block)"),
@@ -2128,6 +2714,7 @@ def main() -> None:
         "ms_normal_values": pack_normal_ms,
         "subnormal_share": subnormal_share,
     }], "serve": serve_stats, "intransit": intransit_stats, "train": train_stats,
+        "data_parallel": dp,
         "transports": {k: {m: v[m] for m in ("raw_mb_per_s", "stage_ms_median", "run_s",
                                              "launches", "codec", "replays",
                                              "resent_stripes", "fired", "seconds",

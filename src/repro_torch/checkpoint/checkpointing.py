@@ -13,6 +13,13 @@ reference holds it: one leaf per key, stacked on a leading periods axis.
 may update its tensors in place at once; the file writes run on the port's
 ``FCFSPool`` and, with a sink, every leaf is also staged into SAVIME
 (queryable in place).
+
+On a mesh (``layout``, the ``TrainSetup`` of the run) every rank calls
+``save``, ``wait`` and ``restore`` at the same step: ``save`` gathers the
+whole state (ZeRO-1 moments, each pod's residual) to rank 0 alone, which
+writes it; ``wait`` ends with a barrier, so that every rank then reads what rank 0
+committed; ``restore`` reads the whole state and gives each rank its share
+for the mesh it runs on, whatever mesh wrote it.
 """
 from __future__ import annotations
 
@@ -50,10 +57,14 @@ def _leaf_file(cdir: str, key: str) -> str:
 
 class CheckpointManager:
     def __init__(self, directory: str, sink: Optional[InTransitSink] = None,
-                 keep: int = 3, async_writes: bool = True):
+                 keep: int = 3, async_writes: bool = True, layout=None):
         self.dir = directory
         self.sink = sink
         self.keep = keep
+        self.layout = layout
+        mesh = getattr(layout, "mesh", None)
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.rank == 0
         os.makedirs(directory, exist_ok=True)
         self._pool = FCFSPool(2, "ckpt-io") if async_writes else None
         self._lock = threading.Lock()
@@ -61,9 +72,14 @@ class CheckpointManager:
     # -- save ---------------------------------------------------------------
     def save(self, state: Tree, step: int) -> str:
         """Non-blocking (async_writes): the device->host copy happens here,
-        file and staging I/O on background threads."""
-        host = _flatten(to_reference_layout(state))
+        file and staging I/O on background threads. On a mesh, collective;
+        rank 0 writes."""
         cdir = os.path.join(self.dir, f"step_{step:08d}")
+        if self.layout is not None:
+            state = self.layout.whole_state(state, root=True)
+        if not self.writer:
+            return cdir
+        host = _flatten(to_reference_layout(state))
         os.makedirs(cdir, exist_ok=True)
         manifest = {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
                     for k, v in host.items()}
@@ -93,6 +109,8 @@ class CheckpointManager:
             self._pool.sync()
         if self.sink:
             self.sink.flush()
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def close(self) -> None:
         """Finish the pending writes and stop the I/O threads."""
@@ -114,7 +132,9 @@ class CheckpointManager:
         """The state of ``step`` (the latest committed by default) on
         ``device``, in the layout of ``abstract_state``: a tree of
         ``ParamSpec`` whose lists (per-period ``scan`` entries) are read from
-        one stacked leaf each. Leaves are cast to the spec's dtype."""
+        one stacked leaf each. Leaves are cast to the spec's dtype. With a
+        ``layout``, ``abstract_state`` is the whole state's and the result
+        this rank's share of it."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
@@ -131,7 +151,8 @@ class CheckpointManager:
             arr = np.load(_leaf_file(cdir, key)).reshape(spec_tree.shape)
             return tensor_from_numpy(arr, dev).to(to_dtype(spec_tree.dtype))
 
-        return load(abstract_state, "")
+        whole = load(abstract_state, "")
+        return whole if self.layout is None else self.layout.local_state(whole)
 
     def _gc(self) -> None:
         with self._lock:

@@ -8,7 +8,7 @@ attention is the flash kernel or its plain version, neither of which takes
 a chunk) and ``ShapeConfig``, ``input_specs`` and ``flops_per_step``, which
 describe the reference's XLA dry runs and come with their torch analogue.
 ``pad_heads_to`` exists only for tensor-parallel sharding and is refused
-beyond ``n_heads`` until the multi-device slice brings it.
+beyond ``n_heads`` until the tensor-parallel multi-device slice brings it.
 """
 from __future__ import annotations
 
@@ -108,7 +108,7 @@ class ArchConfig:
             raise ValueError(
                 f"pad_heads_to {self.pad_heads_to} > n_heads {self.n_heads}: "
                 f"padded heads exist only for tensor-parallel sharding, which "
-                f"comes with the multi-device slice")
+                f"comes with the tensor-parallel multi-device slice")
 
     @property
     def layer_kinds(self) -> tuple[str, ...]:

@@ -5,7 +5,10 @@ Synthetic corpus: Zipf-distributed tokens with injected repeated n-grams so
 a real model shows a falling loss within a few hundred steps. ``SyntheticLM``
 is the reference's numpy code, copied: for the same config and seed it
 gives the reference's batches array for array. ``batch_to_device`` takes the
-place of the reference's ``device_put_batch`` on one device.
+place of the reference's ``device_put_batch`` on one device, and
+``device_put_batch`` on a mesh: every rank draws the same global batch from
+the same seed and keeps its DP rows, so a DP step sees the rows the 1x1
+step sees.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.train.sharding import shard_batch
 
 
 @dataclasses.dataclass
@@ -80,3 +84,10 @@ def batch_to_device(batch: dict, device: str | torch.device = "cuda") -> dict:
     dev = resolve_device(device)
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
             for k, v in batch.items()}
+
+
+def device_put_batch(batch: dict, mesh, rules,
+                     device: str | torch.device = "cuda") -> dict:
+    """This rank's rows of the global numpy ``batch`` (``make_rules``'
+    ``batch`` rule) as tensors on ``device``."""
+    return batch_to_device(shard_batch(mesh, rules, batch), device)

@@ -1,0 +1,220 @@
+"""Device meshes on ``torch.distributed``, the port of
+``repro/launch/mesh.py``.
+
+A ``Mesh`` names the axes of the world's ranks in row-major order, as the
+reference lays ``jax.devices()`` out: rank r sits at
+``np.unravel_index(r, shape)``. Each axis has a process group (the ranks
+that differ from this one in that coordinate only), and ``dp`` is the group
+of the data-parallel axes ``pod`` and ``data`` together, ordered pod-major
+as the reference's ``P(("pod", "data"))`` orders a batch's rows.
+
+The groups are gloo's, never NCCL's: NCCL refuses two ranks on one GPU, and
+one card may hold every rank. gloo's point-to-point takes CPU tensors only,
+so the collectives below move a CUDA tensor through a pinned host buffer
+(``AxisGroup``); the time of those copies belongs to the wire.
+
+A mesh with ``model`` > 1 raises: tensor and expert parallelism come with
+the tensor-parallel slice of the port. A mesh of one rank needs no process
+group and runs without ``torch.distributed``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+TP_SLICE = ("tensor and expert parallelism (a mesh with model > 1) come with "
+            "the tensor-parallel slice of the port")
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself on the CPU; a CUDA tensor's copy in pinned host memory
+    (PyTorch's caching host allocator reuses the buffers across steps)."""
+    if t.device.type == "cpu":
+        return t.contiguous()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host
+
+
+def _to_device(host: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return host if like.device.type == "cpu" else host.to(like.device)
+
+
+class AxisGroup:
+    """The ranks along one or more mesh axes that share every other
+    coordinate with this rank: ``ranks`` (global, in axis order), this
+    rank's ``index`` among them, and gloo's group (None for one rank)."""
+
+    def __init__(self, ranks: list[int], index: int,
+                 group: Optional[dist.ProcessGroup]):
+        self.ranks, self.index, self.group = ranks, index, group
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """In place: ``t`` becomes the sum over the group (every rank gets
+        the same bits: gloo's ring reduces each chunk once)."""
+        if self.size == 1:
+            return t
+        host = _to_host(t)
+        dist.all_reduce(host, group=self.group)
+        if host is not t:
+            t.copy_(host)
+        return t
+
+    def all_gather(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """Every rank's ``t`` (same shape and dtype), in group order, on
+        ``t``'s device."""
+        if self.size == 1:
+            return [t]
+        host = _to_host(t)
+        outs = [torch.empty_like(host) for _ in range(self.size)]
+        dist.all_gather(outs, host, group=self.group)
+        return [_to_device(o, t) for o in outs]
+
+    def gather(self, t: torch.Tensor, dst: int = 0) -> Optional[list[torch.Tensor]]:
+        """Every rank's ``t`` (same shape and dtype), in group order, on
+        ``t``'s device on the group's ``dst``-th rank; None on the others."""
+        if self.size == 1:
+            return [t]
+        host = _to_host(t)
+        outs = ([torch.empty_like(host) for _ in range(self.size)]
+                if self.index == dst else None)
+        dist.gather(host, outs, dst=self.ranks[dst], group=self.group)
+        return None if outs is None else [_to_device(o, t) for o in outs]
+
+    def send_to(self, t: torch.Tensor, src: int, dst: int) -> torch.Tensor:
+        """In place on the group's ``dst``-th rank: ``t`` becomes its
+        ``src``-th rank's ``t``. Only those two ranks take part."""
+        if src == dst or self.index not in (src, dst):
+            return t
+        host = _to_host(t)
+        if self.index == src:
+            dist.send(host, self.ranks[dst], group=self.group)
+            return t
+        dist.recv(host, self.ranks[src], group=self.group)
+        if host is not t:
+            t.copy_(host)
+        return t
+
+    def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """In place: ``t`` becomes the group's ``src``-th rank's ``t``."""
+        if self.size == 1:
+            return t
+        host = _to_host(t)
+        dist.broadcast(host, self.ranks[src], group=self.group)
+        if host is not t:
+            t.copy_(host)
+        return t
+
+    def exchange(self, send: torch.Tensor, to: int, recv: torch.Tensor,
+                 frm: int) -> None:
+        """Send ``send`` (a CPU tensor) to the group's ``to``-th rank while
+        receiving ``recv`` (CPU, filled in place) from its ``frm``-th: one
+        hop of a ring."""
+        ops = [dist.P2POp(dist.isend, send, self.ranks[to], self.group),
+               dist.P2POp(dist.irecv, recv, self.ranks[frm], self.group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+
+
+class Mesh:
+    """``shape`` is a dict {axis: size} in axis order, as the reference's
+    ``mesh.shape``; ``coords`` this rank's coordinate on each axis;
+    ``groups[axis]`` its ``AxisGroup`` along that axis; ``dp`` along the
+    data-parallel axes together. Every rank of the world builds the mesh,
+    after ``dist.init_process_group`` when the mesh has more than one
+    rank."""
+
+    def __init__(self, shape: tuple[int, ...], axis_names: tuple[str, ...]):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"shape {shape} and axes {axis_names} differ in length")
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, (int(n) for n in shape)))
+        if self.shape.get("model", 1) > 1:
+            raise NotImplementedError(f"mesh {self.shape}: {TP_SLICE}")
+        n = math.prod(self.shape.values())
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world != n:
+            raise RuntimeError(f"mesh {self.shape} needs {n} ranks; the world "
+                               f"has {world}")
+        self.size = n
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        grid = np.arange(n).reshape(tuple(self.shape.values()))
+        self.coords = dict(zip(self.axis_names,
+                               (int(c) for c in np.unravel_index(self.rank, grid.shape))))
+        self.groups = {a: self._group(grid, (a,)) for a in self.axis_names}
+        self.dp = self._group(grid, dp_axes(self))
+
+    def _group(self, grid: np.ndarray, axes: tuple[str, ...]) -> AxisGroup:
+        """The AxisGroup along ``axes``. Every rank creates every such group
+        (``dist.new_group`` is collective) in the same order."""
+        pos = [self.axis_names.index(a) for a in axes]
+        rest = [i for i in range(grid.ndim) if i not in pos]
+        moved = np.moveaxis(grid, rest + pos, list(range(grid.ndim)))
+        lines = moved.reshape(-1, math.prod(grid.shape[i] for i in pos) if pos else 1)
+        mine = None
+        for line in lines:
+            ranks = [int(r) for r in line]
+            group = (dist.new_group(ranks, backend="gloo")
+                     if len(ranks) > 1 and dist.is_initialized() else None)
+            if self.rank in ranks:
+                mine = AxisGroup(ranks, ranks.index(self.rank), group)
+        return mine
+
+    def barrier(self) -> None:
+        if self.size > 1:
+            dist.barrier()
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, rank {self.rank} at {self.coords})"
+
+
+def dp_axes(mesh) -> tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """16x16 = 256 ranks a pod; 2x16x16 = 512 multi-pod. Raises, as the
+    reference does, when the world is not that size; at that size it raises
+    for model = 16 (``TP_SLICE``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n:
+        raise RuntimeError(f"need {n} devices for mesh {shape}, have {world}")
+    return Mesh(shape, axes)
+
+
+def make_debug_mesh(data: int = 2, model: int = 2, pod: int = 0) -> Mesh:
+    """The reference's small meshes: (data, model), or (pod, data, model)
+    with ``pod``."""
+    if pod:
+        return Mesh((pod, data, model), ("pod", "data", "model"))
+    return Mesh((data, model), ("data", "model"))
+
+
+def parse_mesh(spec: str) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """``DxM`` or ``PxDxM`` -> (shape, axes), the launcher's ``--mesh``
+    debug sizes; ``single`` and ``multi`` are the production meshes."""
+    if spec == "single":
+        return (16, 16), ("data", "model")
+    if spec == "multi":
+        return (2, 16, 16), ("pod", "data", "model")
+    try:
+        parts = tuple(int(x) for x in spec.split("x"))
+    except ValueError:
+        parts = ()
+    if len(parts) not in (2, 3) or min(parts) < 1:
+        raise ValueError(f"mesh {spec!r}: want DxM, PxDxM, single or multi")
+    if len(parts) == 2:
+        return parts, ("data", "model")
+    return parts, ("pod", "data", "model")
+

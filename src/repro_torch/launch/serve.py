@@ -4,7 +4,8 @@ Prefill a batch of prompts, then decode greedily (or by sampling at a
 temperature) with the KV cache updated in place. Optionally stages
 per-step decode latencies in transit (SAVIME) like a real fleet would.
 The port of ``repro/launch/serve.py``, with ``--device`` (CUDA unless the
-CPU is asked for); ``--mesh`` takes 1x1 only (one device).
+CPU is asked for); ``--mesh`` takes 1x1 only (one device): serving on a
+mesh comes with the tensor-parallel slice.
 """
 from __future__ import annotations
 
@@ -196,7 +197,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.mesh != "1x1":
         ap.error(f"--mesh {args.mesh}: the port serves on one device; "
-                 "meshes come with the multi-device slice")
+                 "serving on a mesh (tensor parallelism, the sequence-sharded "
+                 "KV cache) comes with the tensor-parallel multi-device slice")
     if args.analyzer and not args.intransit:
         ap.error("--analyzer requires --intransit")
     if (args.tenant or args.quota_mb) and not args.pool:

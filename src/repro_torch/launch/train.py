@@ -1,36 +1,51 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
 
-Wires together, on one device: config registry -> model -> TrainSetup
-(autograd, AdamW, in-step egress) -> synthetic data pipeline ->
-fault-tolerant Supervisor (asynchronous checkpoints through the staging
-path) -> in-transit sink (the paper's consumer is a live SAVIME you can
-query while training). With ``--intransit`` each step's egress (its
+Wires together: config registry -> model -> mesh -> TrainSetup (autograd,
+AdamW with ZeRO-1, optional compressed cross-pod grads, in-step egress) ->
+synthetic data pipeline -> fault-tolerant Supervisor (asynchronous
+checkpoints through the staging path) -> in-transit sink (the paper's
+consumer is a live SAVIME you can query while training). With ``--intransit`` each step's egress (its
 diagnostics, and with ``--egress grads_int8`` the int8 gradient blocks and
 their scales) is staged into SAVIME as the step ends, as
 ``examples/train_with_intransit.py`` stages it, and so is each checkpoint.
 
 The port of ``repro/launch/train.py``, with ``--device`` (CUDA unless the
-CPU is asked for). The multi-device flags raise: a mesh other than 1x1 and
-the compressed cross-pod reduction.
+CPU is asked for). ``--mesh DxM`` or ``PxDxM`` with M = 1 runs one process
+a rank (``launch.spawn``, gloo groups; on CUDA every rank on a card of the
+machine, all on one when it has one), and ``main`` returns rank 0's
+results; rank 0 alone runs the in-transit sink, stages each step's egress
+and writes the checkpoints. ``--mesh single`` and ``multi`` need 256 and
+512 ranks, as the reference's do; a mesh with M > 1 exits with the
+tensor-parallel slice's name.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import math
+import sys
 import tempfile
 import time
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch import analysis, transport
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
-from repro_torch.data import DataConfig, SyntheticLM, batch_to_device
+from repro_torch.data import (DataConfig, SyntheticLM, batch_to_device,
+                              device_put_batch)
 from repro_torch.device import resolve_device
+from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.launch.mesh import (TP_SLICE, Mesh, make_production_mesh,
+                                     parse_mesh)
+from repro_torch.launch.spawn import run_ranks
 from repro_torch.models import Model
 from repro_torch.runtime import Supervisor, SupervisorConfig
 from repro_torch.tensors import to_host
 from repro_torch.train import TrainConfig, TrainSetup
+from repro_torch.train import train_step as train_step_mod
 
 # the names each step's egress is staged under
 EGRESS_NAMES = {"diag": "diag", "blocks": "grad_blocks", "scales": "grad_scales"}
@@ -48,13 +63,20 @@ def stage_egress(sink, egress: dict, step: int) -> dict:
     return staged
 
 
-def _reject_multi_device(ap: argparse.ArgumentParser, args) -> None:
-    if args.mesh != "1x1":
-        ap.error(f"--mesh {args.mesh}: the port runs on one device; meshes "
-                 "come with the multi-device slice")
-    if args.compress_pods:
-        ap.error("--compress-pods: the cross-pod reduction comes with the "
-                 "multi-device slice")
+def build_mesh(spec: str) -> Mesh:
+    """The mesh ``--mesh`` names, built on this rank (after
+    ``init_process_group`` when it has more than one rank)."""
+    if spec in ("single", "multi"):
+        return make_production_mesh(multi_pod=spec == "multi")
+    return Mesh(*parse_mesh(spec))
+
+
+def rank_device(device: str) -> torch.device:
+    """This rank's device: the CPU, or the card ``rank % cards``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None and dist.is_initialized():
+        dev = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+    return dev
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -65,7 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda raises when absent")
     ap.add_argument("--mesh", default="1x1",
-                    help="only 1x1 (one device) in this slice of the port")
+                    help="single | multi | DxM | PxDxM (debug sizes), M = 1: "
+                         "one process a rank")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -108,7 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "store them compressed and decode lazily on the "
                          "staging->SAVIME hop")
     ap.add_argument("--compress-pods", action="store_true",
-                    help="int8 cross-pod gradient reduction (a later slice)")
+                    help="int8 error-feedback cross-pod gradient reduction "
+                         "(a mesh with more than one pod)")
     ap.add_argument("--egress", default="diag",
                     choices=["none", "diag", "grads_int8"])
     ap.add_argument("--faults", default=None,
@@ -119,25 +143,35 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def train(args, log=print) -> dict:
-    """Run the launcher's training. Returns the supervisor's metrics log,
-    its restarts and the run's seconds; with ``--intransit`` also the
-    staged diagnostics SAVIME holds (unless ``--egress none``), the
-    session's transfer stats and the staging server's counters."""
-    dev = resolve_device(args.device)
+def train(args, log=print, mesh=None) -> dict:
+    """Run the launcher's training, on one device or as this rank of
+    ``mesh``. Returns the supervisor's metrics log, its restarts, the run's
+    seconds and the kernels' launches in the run; with ``--intransit`` (on
+    rank 0) also the staged diagnostics SAVIME holds (unless ``--egress
+    none``), the session's transfer stats and the staging server's
+    counters; on a mesh of more than one rank also every rank's launches
+    and this rank's cross-pod wire bytes."""
+    dev = rank_device(args.device)
+    root = mesh is None or mesh.rank == 0
+    if not root:
+        def log(msg):
+            return None
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     model = Model(cfg)
-    log(f"[train] {cfg.name}: {cfg.param_count() / 1e6:.1f}M params on {dev}")
+    log(f"[train] {cfg.name}: {cfg.param_count() / 1e6:.1f}M params on {dev}"
+        + (f", mesh {mesh.shape}" if mesh is not None else ""))
     setup = TrainSetup(model, TrainConfig(
         peak_lr=args.lr, warmup_steps=min(20, args.steps // 5 + 1),
-        total_steps=args.steps, egress=args.egress))
+        total_steps=args.steps, compress_pods=args.compress_pods,
+        egress=args.egress), mesh)
     state = setup.init_state(0, dev)
+    launches0, wire0 = dict(LAUNCHES), dict(train_step_mod.POD_WIRE)
 
     with contextlib.ExitStack() as stack:
         sink = savime = staging = None
-        if args.intransit:
+        if args.intransit and root:
             from repro_torch.core import (InTransitConfig, InTransitSink,
                                           SavimeServer, StagingServer)
             savime = SavimeServer().start()
@@ -175,7 +209,8 @@ def train(args, log=print) -> dict:
                 f"{f', codec={args.codec}' if args.codec != 'none' else ''})"
                 f"--> SAVIME {savime.addr}")
         ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro-torch-ckpt-")
-        ckpt = CheckpointManager(ckpt_dir, sink=sink)
+        ckpt = CheckpointManager(ckpt_dir, sink=sink,
+                                 layout=setup if mesh is not None else None)
         stack.callback(ckpt.close)
         step_fn = setup.step_fn()
 
@@ -188,7 +223,8 @@ def train(args, log=print) -> dict:
         sup = Supervisor(step, ckpt, SupervisorConfig(ckpt_every=args.ckpt_every))
         dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                         global_batch=args.batch)
-        batches = (batch_to_device(b, dev) for b in SyntheticLM(dc).batches())
+        batches = (device_put_batch(b, mesh, setup.rules, dev) if mesh is not None
+                   else batch_to_device(b, dev) for b in SyntheticLM(dc).batches())
         t0 = time.perf_counter()
         state = sup.run(state, batches, args.steps,
                         abstract_state=setup.state_specs(), device=dev)
@@ -199,7 +235,13 @@ def train(args, log=print) -> dict:
             f"loss {losses[0]:.3f} -> {losses[-1]:.3f}; "
             f"restarts={sup.restarts}; checkpoints in {ckpt_dir}")
         out = {"metrics": sup.metrics_log, "restarts": sup.restarts,
-               "diag": None, "seconds": dt}
+               "diag": None, "seconds": dt,
+               "launches": {k: LAUNCHES[k] - launches0[k] for k in LAUNCHES}}
+        if mesh is not None and mesh.size > 1:
+            out["pod_wire"] = {k: train_step_mod.POD_WIRE[k] - wire0[k]
+                               for k in wire0}
+            out["launches_by_rank"] = [None] * mesh.size
+            dist.all_gather_object(out["launches_by_rank"], out["launches"])
         if sink is not None:
             sink.flush()
         if sink is not None and args.egress != "none":
@@ -218,11 +260,34 @@ def train(args, log=print) -> dict:
     return out
 
 
+def _train_rank(argv: list) -> dict:
+    """One rank of a launcher run on a mesh (``run_ranks`` calls it)."""
+    args = build_parser().parse_args(argv)
+    reset_launches()
+    return train(args, mesh=build_mesh(args.mesh))
+
+
 def main(argv=None) -> dict:
+    """Parse ``argv`` and train; on a mesh of more than one rank, one
+    process a rank. Returns rank 0's results."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    _reject_multi_device(ap, args)
-    return train(args)
+    try:
+        shape, axes = parse_mesh(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
+    if dict(zip(axes, shape)).get("model", 1) > 1 and args.mesh not in (
+            "single", "multi"):
+        ap.error(f"--mesh {args.mesh}: {TP_SLICE}")
+    n = math.prod(shape)
+    if n == 1:
+        return train(args, mesh=build_mesh(args.mesh))
+    if args.mesh in ("single", "multi"):
+        build_mesh(args.mesh)     # raises: this is one process, not n ranks
+    argv = list(argv if argv is not None else sys.argv[1:])
+    if args.ckpt_dir is None:     # one directory every rank reads
+        argv += ["--ckpt-dir", tempfile.mkdtemp(prefix="repro-torch-ckpt-")]
+    return run_ranks(_train_rank, n, argv)[0]
 
 
 if __name__ == "__main__":

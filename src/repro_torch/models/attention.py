@@ -25,18 +25,20 @@ def attn_specs(cfg) -> dict[str, ParamSpec]:
     M, Hq, Hkv, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pdt = cfg.param_dtype
     specs = {
-        "wq": ParamSpec((M, Hq * D), pdt),
-        "wk": ParamSpec((M, Hkv * D), pdt),
-        "wv": ParamSpec((M, Hkv * D), pdt),
-        "wo": ParamSpec((Hq * D, M), pdt),
+        "wq": ParamSpec((M, Hq * D), pdt, axes=("embed", "qkv")),
+        "wk": ParamSpec((M, Hkv * D), pdt, axes=("embed", "kv_flat")),
+        "wv": ParamSpec((M, Hkv * D), pdt, axes=("embed", "kv_flat")),
+        "wo": ParamSpec((Hq * D, M), pdt, axes=("qkv", "embed")),
     }
     if cfg.qkv_bias:
-        specs["bq"] = ParamSpec((Hq * D,), pdt, init="zeros")
-        specs["bk"] = ParamSpec((Hkv * D,), pdt, init="zeros")
-        specs["bv"] = ParamSpec((Hkv * D,), pdt, init="zeros")
+        specs["bq"] = ParamSpec((Hq * D,), pdt, init="zeros", axes=("qkv",))
+        specs["bk"] = ParamSpec((Hkv * D,), pdt, init="zeros",
+                                axes=("kv_flat",))
+        specs["bv"] = ParamSpec((Hkv * D,), pdt, init="zeros",
+                                axes=("kv_flat",))
     if cfg.qk_norm:   # f32 whatever the param dtype, as the reference declares
-        specs["q_norm"] = ParamSpec((D,), init="ones")
-        specs["k_norm"] = ParamSpec((D,), init="ones")
+        specs["q_norm"] = ParamSpec((D,), init="ones", axes=("head_dim",))
+        specs["k_norm"] = ParamSpec((D,), init="ones", axes=("head_dim",))
     return specs
 
 

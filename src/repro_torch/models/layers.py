@@ -4,7 +4,8 @@ Parameters are nested dicts of tensors. Each is declared once as a
 ``ParamSpec`` (shape, dtype, initializer); ``init_params`` materializes a
 spec tree on one device from one ``torch.Generator``. Sharding annotations
 have no counterpart on one device (the reference's ``constrain`` is a no-op
-there), so specs carry no logical axes.
+there); specs carry the reference's logical axes all the same, which
+ZeRO-1 reads on a mesh to pick the dimension it splits.
 """
 from __future__ import annotations
 
@@ -37,6 +38,9 @@ class ParamSpec:
     init: str = "normal"   # normal | zeros | ones | neg_ones | a_log
     scale: float = 1.0     # fan-in style scale multiplier for "normal"
     keep_dtype: bool = False   # Model.compute_params leaves it in `dtype`
+    # the reference's logical axes, one name (or None) a dim; () for a
+    # cache spec. The port reads them for ZeRO-1's split (optim.zero1_plan)
+    axes: tuple = ()
 
     def materialize(self, generator: torch.Generator,
                     device: torch.device) -> torch.Tensor:
@@ -90,8 +94,9 @@ def init_params(spec_tree: Tree, generator: torch.Generator,
 
 def stack_specs(spec_tree: Tree, n: int) -> Tree:
     """Prepend a stacked `layers` axis of length n to every spec."""
-    return tree_map(lambda s: dataclasses.replace(s, shape=(n, *s.shape)),
-                    spec_tree)
+    return tree_map(lambda s: dataclasses.replace(
+        s, shape=(n, *s.shape), axes=("layers", *s.axes) if s.axes else ()),
+        spec_tree)
 
 
 def unstack(tree: Tree, n: int) -> list:
@@ -114,7 +119,8 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
 
 
 def rms_norm_spec(dim: int, plus_one: bool = False) -> ParamSpec:
-    return ParamSpec((dim,), init="zeros" if plus_one else "ones")
+    return ParamSpec((dim,), init="zeros" if plus_one else "ones",
+                     axes=("embed",))
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -137,11 +143,11 @@ ACTS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 
 def mlp_specs(d_model: int, d_ff: int, glu: bool, pdt) -> dict[str, ParamSpec]:
     specs = {
-        "wi": ParamSpec((d_model, d_ff), pdt),
-        "wo": ParamSpec((d_ff, d_model), pdt),
+        "wi": ParamSpec((d_model, d_ff), pdt, axes=("embed", "ffn")),
+        "wo": ParamSpec((d_ff, d_model), pdt, axes=("ffn", "embed")),
     }
     if glu:
-        specs["wg"] = ParamSpec((d_model, d_ff), pdt)
+        specs["wg"] = ParamSpec((d_model, d_ff), pdt, axes=("embed", "ffn"))
     return specs
 
 
@@ -171,9 +177,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 def embed_specs(vocab: int, d_model: int, tie: bool, pdt) -> dict[str, ParamSpec]:
-    specs = {"table": ParamSpec((vocab, d_model), pdt, scale=1.0)}
+    specs = {"table": ParamSpec((vocab, d_model), pdt, scale=1.0,
+                                 axes=("vocab", "embed"))}
     if not tie:
-        specs["head"] = ParamSpec((d_model, vocab), pdt)
+        specs["head"] = ParamSpec((d_model, vocab), pdt, axes=("embed", "vocab"))
     return specs
 
 

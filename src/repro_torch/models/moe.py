@@ -28,12 +28,14 @@ def moe_specs(cfg) -> dict:
         # routing is f32 whatever the param dtype (the reference declares
         # the router f32 and routes in f32): a bf16 router would flip
         # near-tie routings, so it is never cast to the compute dtype
-        "router": ParamSpec((M, E), torch.float32, keep_dtype=True),
-        "wi": ParamSpec((E, M, Fe), pdt),
-        "wo": ParamSpec((E, Fe, M), pdt),
+        "router": ParamSpec((M, E), torch.float32, keep_dtype=True,
+                            axes=("embed", "expert")),
+        "wi": ParamSpec((E, M, Fe), pdt, axes=("expert", "embed", "expert_ffn")),
+        "wo": ParamSpec((E, Fe, M), pdt, axes=("expert", "expert_ffn", "embed")),
     }
     if cfg.mlp_glu:
-        specs["wg"] = ParamSpec((E, M, Fe), pdt)
+        specs["wg"] = ParamSpec((E, M, Fe), pdt,
+                                axes=("expert", "embed", "expert_ffn"))
     if m.shared_expert:
         specs["shared"] = mlp_specs(M, Fe, cfg.mlp_glu, pdt)
     if m.dense_residual:

@@ -30,18 +30,20 @@ def rglru_specs(cfg) -> dict[str, ParamSpec]:
     nb = dr // bw
     pdt = cfg.param_dtype
     return {
-        "w_x": ParamSpec((M, dr), pdt),
-        "w_y": ParamSpec((M, dr), pdt),
-        "conv_w": ParamSpec((cfg.rglru.d_conv, dr), pdt, scale=1.0),
-        "conv_b": ParamSpec((dr,), pdt, init="zeros"),
+        "w_x": ParamSpec((M, dr), pdt, axes=("embed", "rnn")),
+        "w_y": ParamSpec((M, dr), pdt, axes=("embed", "rnn")),
+        "conv_w": ParamSpec((cfg.rglru.d_conv, dr), pdt, scale=1.0,
+                            axes=("conv", "rnn")),
+        "conv_b": ParamSpec((dr,), pdt, init="zeros", axes=("rnn",)),
         # block-diagonal input/recurrence gates; as in the reference, their
         # init's fan-in is the leading axis, the number of blocks
-        "w_i": ParamSpec((nb, bw, bw), pdt),
-        "w_r": ParamSpec((nb, bw, bw), pdt),
-        "b_i": ParamSpec((dr,), pdt, init="zeros"),
-        "b_r": ParamSpec((dr,), pdt, init="zeros"),
-        "lam": ParamSpec((dr,), torch.float32, init="ones", keep_dtype=True),
-        "w_out": ParamSpec((dr, M), pdt),
+        "w_i": ParamSpec((nb, bw, bw), pdt, axes=("rnn", None, None)),
+        "w_r": ParamSpec((nb, bw, bw), pdt, axes=("rnn", None, None)),
+        "b_i": ParamSpec((dr,), pdt, init="zeros", axes=("rnn",)),
+        "b_r": ParamSpec((dr,), pdt, init="zeros", axes=("rnn",)),
+        "lam": ParamSpec((dr,), torch.float32, init="ones", keep_dtype=True,
+                         axes=("rnn",)),
+        "w_out": ParamSpec((dr, M), pdt, axes=("rnn", "embed")),
     }
 
 

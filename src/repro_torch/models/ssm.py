@@ -22,18 +22,19 @@ def mamba_specs(cfg) -> dict[str, ParamSpec]:
     R = s.resolved_dt_rank(M)
     pdt = cfg.param_dtype
     return {
-        "in_proj": ParamSpec((M, 2 * di), pdt),
-        "conv_w": ParamSpec((s.d_conv, di), pdt, scale=1.0),
-        "conv_b": ParamSpec((di,), pdt, init="zeros"),
-        "x_proj": ParamSpec((di, R + 2 * N), pdt),
-        "dt_proj": ParamSpec((R, di), pdt),
-        "dt_bias": ParamSpec((di,), pdt, init="zeros"),
+        "in_proj": ParamSpec((M, 2 * di), pdt, axes=("embed", "inner")),
+        "conv_w": ParamSpec((s.d_conv, di), pdt, scale=1.0, axes=("conv", "inner")),
+        "conv_b": ParamSpec((di,), pdt, init="zeros", axes=("inner",)),
+        "x_proj": ParamSpec((di, R + 2 * N), pdt, axes=("inner", "dt")),
+        "dt_proj": ParamSpec((R, di), pdt, axes=("dt", "inner")),
+        "dt_bias": ParamSpec((di,), pdt, init="zeros", axes=("inner",)),
         # float32 whatever the param dtype, and used in float32
         # (A = -exp(A_log)): never cast to the compute dtype
         "A_log": ParamSpec((di, N), torch.float32, init="a_log",
-                           keep_dtype=True),
-        "D": ParamSpec((di,), torch.float32, init="ones", keep_dtype=True),
-        "out_proj": ParamSpec((di, M), pdt),
+                           keep_dtype=True, axes=("inner", "state")),
+        "D": ParamSpec((di,), torch.float32, init="ones", keep_dtype=True,
+                       axes=("inner",)),
+        "out_proj": ParamSpec((di, M), pdt, axes=("inner", "embed")),
     }
 
 

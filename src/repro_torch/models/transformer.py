@@ -112,7 +112,8 @@ def unstack_scan_specs(spec_tree: dict, cfg) -> dict:
     list of per-period specs without the periods axis."""
     n_scan, _ = _plan(cfg)
     return {**spec_tree, "scan": {
-        k: [tree_map(lambda s: dataclasses.replace(s, shape=s.shape[1:]), t)
+        k: [tree_map(lambda s: dataclasses.replace(s, shape=s.shape[1:],
+                                                   axes=s.axes[1:]), t)
             for _ in range(n_scan)]
         for k, t in spec_tree["scan"].items()}}
 

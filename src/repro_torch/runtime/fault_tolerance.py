@@ -11,6 +11,14 @@ leaves the process's CUDA context unusable, so restoring in the same
 process cannot recover from it: the restore itself fails and the error
 reaches the caller; only a new process can resume from the checkpoint.
 
+On a mesh each rank runs its own Supervisor over the same steps, with a
+``CheckpointManager`` laid out for the mesh: saves are collective, and an
+injected failure (the same ``fail_at`` on every rank) and its restore
+happen on every rank at the same step, the checkpoint's ``wait`` a barrier
+before the restore reads. A device error on one rank alone is not
+recovered there: the other ranks wait in the next collective until gloo's
+timeout.
+
 ``plan_mesh`` is the reference's, copied: it re-derives a (pod, data,
 model) factorization from the healthy device count.
 """

@@ -1,10 +1,23 @@
-"""The train step on one device, the port of ``repro/train/train_step.py``:
-loss and gradients from autograd, optional microbatch accumulation, AdamW,
+"""The train step, the port of ``repro/train/train_step.py``: loss and
+gradients from autograd, optional microbatch accumulation, AdamW (ZeRO-1 on
+a mesh), the int8 error-feedback cross-pod reduction of ``compress_pods``,
 and the in-step egress for the in-transit sink (the paper's producer side).
 
-What the reference adds for a mesh (the logical sharding rules, ZeRO-1, the
-int8 error-feedback cross-pod reduction of ``compress_pods``) comes with the
-multi-device slice: ``compress_pods=True`` raises here.
+On a mesh (``launch.mesh.Mesh``, one process a rank) the step follows the
+reference's three branches:
+  * compressed (``compress_pods`` and more than one pod): grads on this
+    rank's rows, their f32 mean over ``data``, then ``_pod_reduce`` over
+    ``pod``, an int8 ring reduce-scatter + all-gather with an error-feedback
+    residual ``err`` kept in the state. As in the reference, this branch
+    takes no microbatches;
+  * microbatched DP and plain DP: grads (accumulated over microbatches)
+    all-reduced to their f32 mean over the DP axes.
+Loss and metrics are averaged over the DP ranks: each rank's loss is the
+mean over its own rows, so this equals the reference's global-batch loss
+where every rank's rows hold the same number of unmasked tokens (every
+batch ``SyntheticLM`` makes). Every rank then holds the same reduced
+gradients, the AdamW update (each rank its ZeRO-1 share) and the same
+params. The egress is computed from the reduced grads on the DP root only.
 
 The step updates the state's parameters and moments in place and returns
 the state with its new count and step. The egress holds only tensors the
@@ -14,7 +27,7 @@ them until they are acknowledged while the next step runs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -23,15 +36,21 @@ from repro_torch.kernels.staging_pack import ops as pack_ops
 from repro_torch.models.layers import ParamSpec, tree_leaves, tree_map
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import unstack_scan_specs
-from repro_torch.optim.optimizer import (AdamWConfig, adamw_init, adamw_update,
-                                         decay_mask)
+from repro_torch.optim import grad_compress as gc
+from repro_torch.optim.optimizer import (AdamWConfig, Zero1, adamw_init,
+                                         adamw_update, decay_mask)
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.train.sharding import make_rules
 
 Tree = Any
 EGRESS = ("none", "diag", "grads_int8")
 # grads_int8: each egress block is one (8, 128) tile of the first gradient
 # leaf, quantized to int8 with its own scale
 EGRESS_TILE = (8, 128)
+# bytes a rank put on the cross-pod wire in ``_pod_reduce`` (int8 shards and
+# their scales, reduce-scatter and all-gather), counted from the buffers
+# sent and received; read and reset by the caller
+POD_WIRE = {"bytes": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +65,8 @@ class TrainConfig:
     xent_chunk: int = 512
     microbatches: int = 1            # gradient accumulation (activation
                                      # memory / microbatches; grads fp32)
-    fsdp_experts: bool = False       # shards expert ffn on a mesh (no-op here)
+    fsdp_experts: bool = False       # shard expert ffn dim over `data`
+                                     # (the tensor-parallel slice)
 
 
 def tree_unflatten(like: Tree, leaves: list) -> Tree:
@@ -63,39 +83,123 @@ def first_leaf(tree: Tree) -> torch.Tensor:
     return tree
 
 
+def _dp_mean(group, t: torch.Tensor) -> torch.Tensor:
+    """In place: ``t``'s f32 mean over ``group``'s ranks."""
+    if group.size > 1:
+        group.all_reduce_sum(t).div_(group.size)
+    return t
+
+
 class TrainSetup:
-    def __init__(self, model: Model, cfg: TrainConfig = TrainConfig()):
-        if cfg.compress_pods:
-            raise NotImplementedError(
-                "compress_pods (the int8 cross-pod reduction) needs a mesh; "
-                "it comes with the multi-device slice of the port")
+    def __init__(self, model: Model, cfg: TrainConfig = TrainConfig(),
+                 mesh=None):
         if cfg.egress not in EGRESS:
             raise ValueError(f"egress {cfg.egress!r} not in {EGRESS}")
         self.model = model
         self.cfg = cfg
+        self.mesh = mesh
         self.spec_tree = model.param_specs()       # the reference's, stacked
-        self.decay = decay_mask(self.spec_tree, self.state_specs()["params"])
+        params = unstack_scan_specs(self.spec_tree, model.cfg)
+        self.decay = decay_mask(self.spec_tree, params)
+        self.rules = make_rules(mesh, model.cfg) if mesh is not None else None
+        if mesh is None:
+            if cfg.compress_pods:
+                raise ValueError("compress_pods reduces over the pods of a "
+                                 "mesh: pass mesh=")
+            self.compress, self.zero1 = False, None
+            return
+        if cfg.fsdp_experts and mesh.shape.get("data", 1) > 1:
+            raise NotImplementedError(
+                "fsdp_experts (expert weights sharded over data) comes with "
+                "the tensor-parallel slice of the port")
+        self.compress = cfg.compress_pods and mesh.shape.get("pod", 1) > 1
+        self.zero1 = (Zero1(self.spec_tree, params, mesh.dp)
+                      if cfg.opt.zero1 and mesh.dp.size > 1 else None)
+
+    @property
+    def n_pods(self) -> int:
+        return self.mesh.shape["pod"] if self.compress else 1
 
     # -- state ------------------------------------------------------------
     def state_specs(self) -> dict:
-        """The state's specs in the port's layout: each ``scan`` entry a list
-        of per-period specs (a checkpoint stores such a list stacked, as the
-        reference's tree holds it)."""
+        """The whole state's specs in the port's layout (what a checkpoint
+        holds): each ``scan`` entry a list of per-period specs (stored
+        stacked, as the reference's tree holds it), whole moments, and with
+        ``compress_pods`` each pod's residual, (n_pods, rows, QBLOCK)."""
         params = unstack_scan_specs(self.spec_tree, self.model.cfg)
         moment = tree_map(lambda s: ParamSpec(s.shape, torch.float32, "zeros"),
                           params)
         scalar = ParamSpec((), torch.int32, "zeros")
-        return {"params": params,
-                "opt": {"mu": moment, "nu": moment, "count": scalar},
-                "step": scalar}
+        specs = {"params": params,
+                 "opt": {"mu": moment, "nu": moment, "count": scalar},
+                 "step": scalar}
+        if self.compress:
+            specs["err"] = ParamSpec(
+                (self.n_pods, *gc.error_state(params, self.n_pods)),
+                torch.float32, "zeros")
+        return specs
 
     def init_state(self, seed: int = 0,
                    device: str | torch.device = "cuda") -> dict:
-        """Seeded params (``Model.init``), zero moments, count and step 0."""
+        """Seeded params (``Model.init``; every rank draws the same), zero
+        moments (this rank's ZeRO-1 shares), count and step 0, and with
+        ``compress_pods`` this pod's zero residual."""
         dev = resolve_device(device)
         params = self.model.init(seed, dev)
-        return {"params": params, "opt": adamw_init(params),
-                "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        opt = adamw_init(params)
+        if self.zero1 is not None:
+            opt = {"mu": self.zero1.local(opt["mu"]),
+                   "nu": self.zero1.local(opt["nu"]), "count": opt["count"]}
+        state = {"params": params, "opt": opt,
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        if self.compress:
+            state["err"] = torch.zeros(gc.error_state(params, self.n_pods),
+                                       dtype=torch.float32, device=dev)
+        return state
+
+    def whole_state(self, state: dict, root: bool = False) -> Optional[dict]:
+        """This rank's state -> the whole state of ``state_specs`` on every
+        rank: moments gathered over the DP ranks, each pod's residual
+        gathered over the pods (collective on a mesh). With ``root``, the
+        whole state reaches the mesh's rank 0 alone (a checkpoint's writer)
+        and every other rank gets None."""
+        if self.mesh is None:
+            return state
+        opt = state["opt"]
+        dst = 0 if root else None          # rank 0 is first in every group
+        if self.zero1 is not None:
+            opt = {"mu": self.zero1.whole(opt["mu"], state["params"], dst),
+                   "nu": self.zero1.whole(opt["nu"], state["params"], dst),
+                   "count": opt["count"]}
+        err = None
+        if self.compress:
+            pod = self.mesh.groups["pod"]
+            if not root:
+                err = torch.stack(pod.all_gather(state["err"]))
+            elif self.mesh.coords["data"] == 0:      # rank 0's pod group
+                parts = pod.gather(state["err"], 0)
+                err = None if parts is None else torch.stack(parts)
+        if root and self.mesh.rank != 0:
+            return None
+        whole = {**state, "opt": opt}
+        if self.compress:
+            whole["err"] = err
+        return whole
+
+    def local_state(self, whole: dict) -> dict:
+        """The whole state (as a checkpoint restores it, on any mesh's
+        layout) -> this rank's: its ZeRO-1 shares of the moments and its
+        pod's residual."""
+        if self.mesh is None:
+            return whole
+        opt = whole["opt"]
+        if self.zero1 is not None:
+            opt = {"mu": self.zero1.local(opt["mu"]),
+                   "nu": self.zero1.local(opt["nu"]), "count": opt["count"]}
+        local = {**whole, "opt": opt}
+        if self.compress:
+            local["err"] = whole["err"][self.mesh.coords["pod"]].clone()
+        return local
 
     # -- the step -----------------------------------------------------------
     def _value_and_grad(self, params: Tree, batch: dict):
@@ -149,22 +253,150 @@ class TrainSetup:
                                             torch.int8)
         return {"diag": diag, "blocks": blocks, "scales": scales}
 
+    def reduced_loss_and_grads(self, state: dict, batch: dict):
+        """(loss, metrics, grads) with the grads reduced over the mesh by the
+        branch the config picks (module docstring), from this rank's rows in
+        ``batch``; on a compressed mesh ``state["err"]`` moves on a step, in
+        place."""
+        mesh = self.mesh
+        if self.compress:
+            loss, metrics, grads = self._value_and_grad(state["params"], batch)
+            leaves = tree_leaves(grads)
+            del grads
+            flat, pad = gc.flatten(leaves, self.n_pods)     # frees the grads
+            _dp_mean(mesh.groups["data"], flat)
+            # state["err"] moves on in place
+            flat, _ = _pod_reduce(flat, state["err"], mesh.groups["pod"])
+            grads = gc.unflatten(flat, pad, state["params"])
+        else:
+            loss, metrics, grads = self.loss_and_grads(state["params"], batch)
+            if mesh is not None and mesh.dp.size > 1:
+                flat, pad = gc.flatten(tree_leaves(grads))
+                grads = gc.unflatten(_dp_mean(mesh.dp, flat), pad, grads)
+        if mesh is not None and mesh.dp.size > 1:
+            keys = sorted(metrics)
+            scalars = _dp_mean(mesh.dp, torch.stack(
+                [loss.float(), *(metrics[k].float() for k in keys)]))
+            loss, metrics = scalars[0], dict(zip(keys, scalars[1:]))
+        return loss, metrics, grads
+
     def step_fn(self) -> Callable:
-        """train_step(state, batch) -> (state, metrics, egress)."""
+        """train_step(state, batch) -> (state, metrics, egress); ``batch``
+        holds this rank's rows (``sharding.shard_batch``). The egress is {}
+        on every rank but the DP root."""
         cfg = self.cfg
+        dp_root = self.mesh is None or self.mesh.dp.index == 0
 
         def train_step(state: dict, batch: dict):
             lr = warmup_cosine(state["step"], peak_lr=cfg.peak_lr,
                                warmup_steps=cfg.warmup_steps,
                                total_steps=cfg.total_steps)
-            loss, metrics, grads = self.loss_and_grads(state["params"], batch)
+            loss, metrics, grads = self.reduced_loss_and_grads(state, batch)
             params, opt, stats = adamw_update(grads, state["opt"],
                                               state["params"], lr, cfg.opt,
-                                              self.decay)
+                                              self.decay, self.zero1)
             metrics = {**metrics, **stats, "loss": loss, "lr": lr}
-            egress = self._egress(grads, loss, stats["grad_norm"])
+            egress = (self._egress(grads, loss, stats["grad_norm"])
+                      if dp_root else {})
             new_state = {"params": params, "opt": opt,
                          "step": state["step"] + 1}
+            if self.compress:
+                new_state["err"] = state["err"]
             return new_state, metrics, egress
 
         return train_step
+
+
+# -- the cross-pod ring --------------------------------------------------------
+
+
+def _to_wire(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """int8 rows and their f32 scales as one host byte buffer (pinned for a
+    CUDA source): q's bytes, then s's."""
+    nq = q.numel()
+    buf = torch.empty(nq + 4 * s.numel(), dtype=torch.uint8,
+                      pin_memory=q.device.type == "cuda")
+    buf[:nq].view(torch.int8).view(q.shape).copy_(q)
+    buf[nq:].view(torch.float32).copy_(s)
+    return buf
+
+
+def _from_wire(buf: torch.Tensor, rows: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    nq = rows * gc.QBLOCK
+    return (buf[:nq].view(torch.int8).view(rows, gc.QBLOCK).to(device),
+            buf[nq:].view(torch.float32).to(device))
+
+
+def _ring_hop(group, q: torch.Tensor, s: torch.Tensor, to: int,
+              frm: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Send this pod's int8 rows ``q`` and scales ``s`` of pod ``to``'s shard
+    to it, and receive pod ``frm``'s rows of this pod's shard: one hop of the
+    reduce-scatter, host copies included."""
+    send = _to_wire(q, s)
+    recv = torch.empty(send.shape, dtype=send.dtype, pin_memory=send.is_pinned())
+    group.exchange(send, to, recv, frm)
+    POD_WIRE["bytes"] += send.numel()
+    return _from_wire(recv, q.shape[0], q.device)
+
+
+def _gather_shards(group, q: torch.Tensor, s: torch.Tensor) -> list:
+    """Every pod's reduced int8 shard and scales, in pod order: the
+    all-gather, host copies included."""
+    bufs = group.all_gather(_to_wire(q, s))
+    POD_WIRE["bytes"] += sum(b.numel() for k, b in enumerate(bufs) if k != group.index)
+    return [_from_wire(b, q.shape[0], q.device) for b in bufs]
+
+
+def _residual_(err: torch.Tensor, g: torch.Tensor, q: torch.Tensor,
+               s: torch.Tensor) -> None:
+    """err = g - q.float() * s[:, None], a chunk of rows at a time."""
+    for a in range(0, g.shape[0], gc.CHUNK_ROWS):
+        b = a + gc.CHUNK_ROWS
+        torch.sub(g[a:b], gc.dequant_blocks(q[a:b], s[a:b]), out=err[a:b])
+
+
+def _add_dequant_(acc: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> None:
+    """acc += q.float() * s[:, None], a chunk of rows at a time."""
+    for a in range(0, acc.shape[0], gc.CHUNK_ROWS):
+        b = a + gc.CHUNK_ROWS
+        acc[a:b].add_(gc.dequant_blocks(q[a:b], s[a:b]))
+
+
+def _pod_reduce(flat: torch.Tensor, err: torch.Tensor, group):
+    """int8 ring reduce-scatter + all-gather over ``pod`` with error feedback,
+    the reference's ``_pod_reduce`` on a gloo group. ``flat``: this pod's
+    (rows, QBLOCK) f32 grads, rows a multiple of the pods; ``err``: its
+    residual. Returns (reduced, new_err), the reduced grads the same bits on
+    every pod. Works in place: ``flat`` becomes the reduced grads and
+    ``err`` the new residual.
+
+    Each pod quantizes g = flat + err (the residual g - dq(g) stays), owns
+    rows [p·R/n, (p+1)·R/n), and sums the dequantized shards in the order
+    the reference's ``ppermute`` ring delivers them: its own, then pod
+    p-1's, p-2's, ...; divides by n, requantizes and all-gathers, int8 and
+    scales on the wire. The sums follow the reference's order, so the
+    result equals its element for element."""
+    n, mine = group.size, group.index
+    g = flat.add_(err)                                  # error feedback in
+    q, s = gc.quant_blocks(g)
+    _residual_(err, g, q, s)                            # residual out
+    rows = g.shape[0] // n
+
+    def shard(k: int) -> slice:
+        return slice(k * rows, (k + 1) * rows)
+
+    acc = gc.dequant_blocks(q[shard(mine)], s[shard(mine)])
+    for hop in range(1, n):
+        to, frm = (mine + hop) % n, (mine - hop) % n
+        qr, sr = _ring_hop(group, q[shard(to)], s[shard(to)], to, frm)
+        _add_dequant_(acc, qr, sr)
+        del qr, sr
+    del q, s
+    # a true division, as the reference's: a divisor held in a tensor
+    # never becomes a multiply by its reciprocal
+    acc.div_(torch.full((1, 1), float(n), device=acc.device))
+    qa, sa = gc.quant_blocks(acc)
+    del acc
+    for k, (qk, sk) in enumerate(_gather_shards(group, qa, sa)):
+        gc.dequant_blocks(qk, sk, out=g[shard(k)])
+    return g, err

@@ -1,0 +1,182 @@
+"""Rank functions for the port's multi-process tests (one gloo process a
+rank, ``repro_torch.launch.spawn.run_ranks``): importable, and free of jax,
+so that each rank starts with torch alone. Each builds its mesh, runs its
+part and returns numpy for the test process to hold against the reference.
+"""
+import dataclasses
+
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_config
+from repro_torch.convert import to_reference_layout
+from repro_torch.data import DataConfig, SyntheticLM, device_put_batch
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import Model
+from repro_torch.models.layers import tree_leaves
+from repro_torch.runtime import Supervisor, SupervisorConfig
+from repro_torch.train import TrainConfig, TrainSetup
+from repro_torch.train import train_step as train_step_mod
+
+B, S = 4, 64
+# past warmup at step 1 (step 0's LR is 0), so the second step moves params
+STEP_CFG = dict(peak_lr=1e-2, warmup_steps=2, total_steps=10, egress="none")
+
+
+def smoke_config(arch="gemma2-27b", **kw):
+    """The smoke config in f32, as the reference's distributed checks take
+    it, with ``kw`` replaced."""
+    return dataclasses.replace(get_config(arch).smoke(), compute_dtype="float32",
+                               param_dtype="float32", **kw)
+
+
+def global_batch(cfg, seed=1, batch=B, seq=S):
+    return next(SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                       global_batch=batch, seed=seed)).batches())
+
+
+def mesh_info(shape, axes):
+    mesh = Mesh(shape, axes)
+    return {"rank": mesh.rank, "coords": mesh.coords,
+            "groups": {a: g.ranks for a, g in mesh.groups.items()},
+            "dp": mesh.dp.ranks, "dp_index": mesh.dp.index}
+
+
+def ring(flats, errs):
+    """``_pod_reduce`` as pod p of len(flats) (one rank a pod): this pod's
+    flat and residual in, (reduced, new residual, wire bytes) out."""
+    mesh = Mesh((len(flats), 1, 1), ("pod", "data", "model"))
+    p = mesh.coords["pod"]
+    train_step_mod.POD_WIRE.update(bytes=0)
+    red, new_err = train_step_mod._pod_reduce(
+        torch.from_numpy(flats[p].copy()), torch.from_numpy(errs[p].copy()),
+        mesh.groups["pod"])
+    return red.numpy(), new_err.numpy(), dict(train_step_mod.POD_WIRE)
+
+
+def tree_allreduce(shape, tree, err):
+    """``grad_compress.compressed_pod_allreduce`` on this pod's ``tree``
+    (numpy leaves) and residual."""
+    from repro_torch.optim import grad_compress
+    mesh = Mesh(shape, ("pod", "data", "model"))
+    p = mesh.coords["pod"]
+    red, new_err = grad_compress.compressed_pod_allreduce(
+        {k: torch.from_numpy(v[p].copy()) for k, v in tree.items()},
+        torch.from_numpy(err[p].copy()), mesh)
+    return {k: v.numpy() for k, v in red.items()}, new_err.numpy()
+
+
+def train_steps(shape, axes, cfg_kw, train_kw, n_steps=2, seed=7):
+    """``n_steps`` of the port's step on this rank of the mesh from the
+    seeded state, on this rank's rows of the global batch. Returns each
+    step's metrics and params and whole moments (gathered; the last step's
+    also at the top level), this rank's moment shares' shapes, and with
+    compress_pods the reduce's input and output at each step."""
+    cfg = smoke_config(**cfg_kw)
+    mesh = Mesh(shape, axes)
+    setup = TrainSetup(Model(cfg), TrainConfig(**{**STEP_CFG, **train_kw}), mesh)
+    state = setup.init_state(seed, "cpu")
+    batch = device_put_batch(global_batch(cfg), mesh, setup.rules, "cpu")
+    reduces = []
+    inner = train_step_mod._pod_reduce
+
+    def recorded(flat, err, group):
+        rec = {"flat": flat.clone().numpy(), "err": err.clone().numpy()}
+        red, new_err = inner(flat, err, group)
+        reduces.append({**rec, "reduced": red.clone().numpy(),
+                        "new_err": new_err.clone().numpy()})
+        return red, new_err
+
+    train_step_mod._pod_reduce = recorded
+    try:
+        step = setup.step_fn()
+        metrics, snapshots = [], []
+        for _ in range(n_steps):
+            state, m, _ = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            snapshots.append(whole_snapshot(setup, state))
+    finally:
+        train_step_mod._pod_reduce = inner
+    return {"metrics": metrics, "coords": mesh.coords, "snapshots": snapshots,
+            **snapshots[-1],
+            "share_shapes": [tuple(t.shape) for t in tree_leaves(state["opt"]["mu"])],
+            "reduces": reduces}
+
+
+def whole_snapshot(setup, state):
+    """The params and whole moments (reference layout, numpy) of a state."""
+    whole = setup.whole_state(state)
+    return {"params": to_reference_layout(state["params"]),
+            "mu": to_reference_layout(whole["opt"]["mu"]),
+            "nu": to_reference_layout(whole["opt"]["nu"])}
+
+
+def save_after_a_step(shape, axes, cfg_kw, directory):
+    """Two steps (the second moves params and moments), then a checkpoint
+    at step 2 written by rank 0. Returns the whole state saved."""
+    cfg = smoke_config(**cfg_kw)
+    mesh = Mesh(shape, axes)
+    setup = TrainSetup(Model(cfg), TrainConfig(**STEP_CFG), mesh)
+    state = setup.init_state(3, "cpu")
+    batch = device_put_batch(global_batch(cfg), mesh, setup.rules, "cpu")
+    step = setup.step_fn()
+    for _ in range(2):
+        state, _, _ = step(state, batch)
+    ckpt = CheckpointManager(directory, async_writes=False, layout=setup)
+    ckpt.save(state, 2)
+    ckpt.wait()
+    ckpt.close()
+    return to_reference_layout(setup.whole_state(state))
+
+
+def whole_on_root(shape, cfg_kw, train_kw):
+    """Two steps, then the whole state gathered to rank 0 alone (what a
+    checkpoint's save takes) and to every rank. Returns both, the first
+    None off rank 0."""
+    cfg = smoke_config(**cfg_kw)
+    mesh = Mesh(shape, ("pod", "data", "model"))
+    setup = TrainSetup(Model(cfg), TrainConfig(**{**STEP_CFG, **train_kw}), mesh)
+    state = setup.init_state(3, "cpu")
+    batch = device_put_batch(global_batch(cfg), mesh, setup.rules, "cpu")
+    step = setup.step_fn()
+    for _ in range(2):
+        state, _, _ = step(state, batch)
+    root = setup.whole_state(state, root=True)
+    return {"root": None if root is None else to_reference_layout(root),
+            "every": to_reference_layout(setup.whole_state(state)),
+            "splits": sorted({s.kind for s in setup.zero1.plan})
+            if setup.zero1 is not None else []}
+
+
+def restore(shape, axes, cfg_kw, directory):
+    """Restore the checkpoint on this mesh. Returns this rank's moment
+    shares, and the whole state gathered back from the shares."""
+    cfg = smoke_config(**cfg_kw)
+    mesh = Mesh(shape, axes)
+    setup = TrainSetup(Model(cfg), TrainConfig(**STEP_CFG), mesh)
+    ckpt = CheckpointManager(directory, layout=setup)
+    state = ckpt.restore(setup.state_specs(), device="cpu")
+    ckpt.close()
+    return {"shares": [t.numpy().copy() for t in tree_leaves(state["opt"]["mu"])],
+            "whole": to_reference_layout(setup.whole_state(state))}
+
+
+def supervised(shape, axes, directory, fail_at):
+    """8 supervised steps, a checkpoint every 2, a failure injected at the
+    steps in ``fail_at`` on every rank. Returns the restarts, the losses and
+    the params."""
+    cfg = smoke_config(n_layers=4)
+    mesh = Mesh(shape, axes)
+    setup = TrainSetup(Model(cfg), TrainConfig(**STEP_CFG), mesh)
+    state = setup.init_state(5, "cpu")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=B)
+    batches = (device_put_batch(b, mesh, setup.rules, "cpu")
+               for b in SyntheticLM(dc).batches())
+    ckpt = CheckpointManager(directory, layout=setup)
+    sup = Supervisor(setup.step_fn(), ckpt, SupervisorConfig(ckpt_every=2))
+    state = sup.run(state, batches, 8, abstract_state=setup.state_specs(),
+                    device="cpu", fail_at=set(fail_at))
+    ckpt.close()
+    return {"restarts": sup.restarts,
+            "losses": [m["loss"] for m in sup.metrics_log],
+            "params": to_reference_layout(state["params"])}

@@ -4,8 +4,8 @@ brings) or anything of repro; every port module imports with all of them
 blocked; entry points refuse to run on the CPU unless asked to; the serve
 and train launchers take the reference's data-plane flags (the transports,
 striped channels, coalescing, the staging pool with tenancy, fault plans)
-and stage through each, and refuse only the multi-device ones (a mesh
-other than 1x1, the compressed cross-pod reduction); the quickstart twin
+and stage through each, and refuse only the multi-device ones (serve on a
+mesh other than 1x1, train on a mesh with model > 1); the quickstart twin
 runs on the CPU; chip_smoke.py fails without a GPU and outside a
 checkout."""
 import ast
@@ -199,12 +199,12 @@ def test_serve_cli_checks_flags_as_the_reference(flags, why, capsys):
 
 
 @pytest.mark.parametrize("flag,why", [
-    ("--mesh=2x1", "multi-device"),
-    ("--compress-pods", "cross-pod reduction")])
+    ("--mesh=1x2", "tensor-parallel"),
+    ("--mesh=2x1x2", "tensor-parallel")])
 def test_train_cli_rejects_multi_device_flags(flag, why, capsys):
-    """The reference's train flags that belong to the multi-device slice:
-    the mesh and the compressed cross-pod reduction. Each exits with
-    argparse's code 2 before anything runs."""
+    """The train meshes that belong to the tensor-parallel slice: ``model``
+    > 1. Each exits with argparse's code 2 before anything runs (a DP mesh
+    and --compress-pods run: tests/test_torch_distributed.py)."""
     from repro_torch.launch.train import main
     with pytest.raises(SystemExit) as e:
         main(["--arch", "gemma2-27b", "--smoke", "--device", "cpu", flag])

@@ -408,8 +408,11 @@ def test_egress_packs_the_first_leaf_byte_for_byte():
 
 
 def test_compress_pods_raises():
+    """The cross-pod reduction reduces over a mesh's pods: without a mesh it
+    raises (on a mesh without pods it is off, as in the reference;
+    tests/test_torch_grad_compress.py runs it on one)."""
     _, tc = _configs(3)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mesh"):
         TrainSetup(Model(tc), TrainConfig(compress_pods=True))
 
 
