@@ -133,6 +133,23 @@ Phases, each of which makes the script exit non-zero when it fails:
      (c) ``repro_torch.launch.train.main`` with
      ``DP_LAUNCHER_FLAGS`` (gemma2-27b smoke, mesh 2x2x1, compress_pods,
      grads_int8 egress, 20 steps).
+ 12. serving on a (data, model) mesh (``serve_on_a_mesh``), each rank a
+     process on the card through the launcher's ``serve_rank``, with tensor
+     and expert parallelism over ``model``: (a) the reference's
+     ``check_seq_sharded_decode`` (``MESH_CHECK``: gemma3-4b smoke in f32,
+     B 1, S 64, max_len 72, mesh 4x2 with ``seq_shard_kv``); (b)
+     ``SERVE_TP``: gemma3-4b at published widths with one period of 6
+     layers on 2x2 with ``seq_shard_kv``, B 1, a 4096-token prompt and 16
+     new tokens (T = 4112 = 2 x 2056 slots a data rank), in f32 against one
+     device and in bf16, with the prefill and decode times, the share of
+     each spent in the mesh's collectives, the flash launches and the peak
+     memory a rank; (c) the other layer kinds (``TP_KINDS``: mamba with the
+     scan on d_inner / 2 channels, RG-LRU, MoE over ``model``, MQA with the
+     prefix, both softcaps) at their smoke configs in f32 on 1x2, in one
+     spawn; (d) the serve launcher's command line at ``--mesh 2x2`` on its
+     default device (``SERVE_CLI_FLAGS``). Then the flash kernel at a 12b rank's attention shapes and the
+     scan at a falcon-mamba-7b rank's (di 4096), each against its plain
+     version and timed beside its bound and the library call.
 
 The pack kernel is checked in phase 3 too, byte for byte against its plain
 version (reference cases, the codec's ragged sizes, exact ties, the full
@@ -183,6 +200,16 @@ Phase 11's gates, set before its first run on the card:
 - (c) the loss falls, SAVIME holds 20 diagnostics, and each rank launched
   the flash kernel 3 layers x 20 steps and the pack kernel 2 x 20 (rank 0:
   3 x 20).
+
+Phase 12's gates, set before its first run on the card: (a), (b) in f32
+and (c): the prefill's and every decode step's logits within 1e-4 of the
+one-device path's max |logit| (the reference's own gate for its SP decode
+check) and the greedy tokens equal; (b) in bf16: the prefill logits within
+LOGITS_REL * mean |logit| of the one-device bf16 path; the flash kernel
+once an attention layer a prefill on every rank (6 in (b)) and never in
+decode; (c) the scan once a mamba layer a rank, each launch on d_inner / 2
+channels; (d) rank 0's tokens (4, 32) and the flash kernel once a layer a
+rank.
 
 The last lines are a JSON summary of the kernels, the card line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -358,6 +385,30 @@ TRAIN_DP = dict(arch="gemma3-4b", n_layers=6, pods=2, rows_per_rank=1, seq_len=4
 DP_LAUNCHER_FLAGS = ["--arch", "gemma2-27b", "--smoke", "--mesh", "2x2x1",
                      "--compress-pods", "--intransit", "--egress", "grads_int8",
                      "--steps", "20"]
+# phase 12, serving on a (data, model) mesh, the ranks sharing the card. (a)
+# the reference's check_seq_sharded_decode: gemma3-4b smoke in f32, B 1, S 64,
+# max_len 72 (64 + 8 new), mesh 4x2 with seq_shard_kv
+MESH_CHECK = dict(arch="gemma3-4b", batch=1, prompt_len=64, new_tokens=8, mesh="4x2")
+# (b) gemma3-4b at published widths, one period, mesh 2x2 with seq_shard_kv:
+# T = 4096 + 16 = 4112 = 2 x 2056 slots a data rank; 8/4 heads give a model
+# rank 4 query and 2 KV heads
+SERVE_TP = dict(arch="gemma3-4b", n_layers=6, batch=1, prompt_len=4096,
+                new_tokens=16, mesh="2x2",
+                reduced="n_layers 34 -> 6 (one period: 5 local at window 1024, "
+                        "1 global): 1,237,386,752 params, ~2.5 GB a rank in f32")
+# (c) the other layer kinds at their smoke configs in f32 on mesh 1x2
+TP_KINDS = ("falcon-mamba-7b", "recurrentgemma-9b", "llama4-maverick-400b-a17b",
+            "paligemma-3b", "gemma2-27b")
+TP_KIND_SERVE = dict(batch=2, prompt_len=40, new_tokens=5)
+# (d) the serve launcher's command line at 2x2, on its default device
+SERVE_CLI_FLAGS = ["--arch", "gemma2-27b", "--smoke", "--mesh", "2x2"]
+# the gate of (a), (b) in f32 and (c): every logit within this share of the
+# one-device path's max |logit| (the reference's own gate for its SP decode)
+TP_LOGITS_REL = 1e-4
+# a 12b rank's attention (GQA 4/2 at head dim 256, no cap; window 1024 on the
+# local layers), and a falcon-mamba-7b rank's scan at model 2 (di 8192 / 2)
+TP_ATTN = dict(Hq=4, Hkv=2, D=256, cap=0.0, causal=True)
+TP_SCAN = dict(B=4, S=4600, di=4096, N=16)
 
 
 def log(msg: str) -> None:
@@ -1319,6 +1370,229 @@ def data_parallel_on_the_card(card: str, disk_dir: Path) -> dict:
     return out
 
 
+# -- phase 12: serving on a (data, model) mesh, the ranks sharing the card ----------
+
+
+def _serve_kw(**over) -> dict:
+    """Every keyword of the launcher's per-rank serve, on the card."""
+    return {"temperature": 0.0, "seed": 0, "device": "cuda", "prompts": None,
+            "prefix_embed": None, "seq_shard_kv": False, "keep_logits": True,
+            **over}
+
+
+def mesh_serve_rank(mesh_spec: str, jobs: list) -> list:
+    """Phase 12 on one rank of ``mesh_spec``: each job (config, keywords)
+    through the launcher's ``serve_rank``, with the wall time of the mesh's
+    collectives (gloo over pinned host buffers, the card synchronised on
+    both sides) summed a phase, and the width of every scan launch. Returns
+    for each job rank 0's results (host tensors) or this rank's launches
+    and peak memory, with its collective ms and scan widths."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.ssm_scan import kernel as scan_kernel
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.serve import serve_rank
+    # the jobs' device: the card, or the CPU in a rehearsal of the phase
+    dev = _rank_device() if jobs[0][1]["device"] == "cuda" else torch.device("cpu")
+    gloo, current, widths = {}, ["setup"], []
+
+    def timed(fn):
+        def wrapper(self, *a, **kw):
+            if self.size == 1:
+                return fn(self, *a, **kw)
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = fn(self, *a, **kw)
+            _sync(dev)
+            gloo[current[0]] = gloo.get(current[0], 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+    @contextlib.contextmanager
+    def phase(name):
+        current[0] = name
+        try:
+            yield
+        finally:
+            current[0] = "other"
+
+    inner_scan = scan_kernel.ssm_scan
+
+    def scan_seen(xi, *a, **kw):
+        widths.append(int(xi.shape[-1]))
+        return inner_scan(xi, *a, **kw)
+
+    out = []
+    with swapped(mesh_mod.AxisGroup, "all_reduce_sum",
+                 timed(mesh_mod.AxisGroup.all_reduce_sum)), \
+            swapped(mesh_mod.AxisGroup, "all_gather", timed(mesh_mod.AxisGroup.all_gather)), \
+            swapped(scan_kernel, "ssm_scan", scan_seen):
+        for cfg, kw in jobs:
+            gloo.clear()
+            widths.clear()
+            current[0] = "setup"
+            res = serve_rank(mesh_spec, cfg, kw, log=log, phase=phase)
+            res.pop("params", None)
+            res.update(rank=dist.get_rank(), gloo_ms=dict(gloo), scan_widths=list(widths))
+            out.append(res)
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def _logits_rel(want: dict, got: dict) -> dict:
+    """Prefill's and each decode step's max |err| over the one-device max
+    |logit|, and whether the tokens are equal."""
+    import torch
+    scale = float(want["prefill_logits"].float().abs().max())
+    steps = (got["step_logits"].float() - want["step_logits"].float()).abs()
+    return {"prefill": float((got["prefill_logits"].float().cpu()
+                              - want["prefill_logits"].float().cpu()).abs().max()) / scale,
+            "decode_max": float(steps.amax()) / scale if steps.numel() else 0.0,
+            "tokens_equal": torch.equal(got["tokens"].cpu(), want["tokens"].cpu())}
+
+
+def serve_on_a_mesh(card: str, dev) -> dict:
+    """Phase 12: (a) the reference's SP decode check at 4x2, (b) gemma3-4b at
+    published widths on 2x2 with seq_shard_kv, in f32 against one device
+    and in bf16 for the times, (c) the other layer kinds at 1x2, (d) the
+    serve launcher's command line at 2x2. Each mesh of (a) to (c) is one
+    ``run_ranks`` call of ``mesh_serve_rank``, its one-device runs first in
+    this process with their logits kept on the host; (d) spawns its ranks
+    itself. Fails on any gate; returns the readings."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.spawn import run_ranks
+
+    def one_device(cfg, **kw):
+        res = serve(cfg, device=dev, keep_logits=True, log=lambda m: None, **kw)
+        keep = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                for k, v in res.items() if k != "params"}
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        return keep
+
+    out, bad = {"card": card}, []
+
+    # (a) the reference's check at 4x2
+    t0 = time.perf_counter()
+    c = MESH_CHECK
+    cfg = dataclasses.replace(get_config(c["arch"]).smoke(), compute_dtype="float32")
+    kw = {k: c[k] for k in ("batch", "prompt_len", "new_tokens")}
+    want = one_device(cfg, **kw)
+    got = run_ranks(mesh_serve_rank, 8, c["mesh"],
+                    [(cfg, _serve_kw(**kw, seq_shard_kv=True))])
+    rel = _logits_rel(want, got[0][0])
+    a = {"logits_rel": rel, "launches": [g[0]["launches"] for g in got],
+         "seconds": time.perf_counter() - t0}
+    out["check_4x2"] = a
+    log(f"mesh 12a, {cfg.name} f32 B {c['batch']} S {c['prompt_len']} max_len "
+        f"{c['prompt_len'] + c['new_tokens']}, mesh {c['mesh']} seq_shard_kv, against "
+        f"one device ({card}): {json.dumps(a)} (limit {TP_LOGITS_REL} of max |logit|, "
+        f"tokens equal)")
+    if not (rel["prefill"] < TP_LOGITS_REL and rel["decode_max"] < TP_LOGITS_REL
+            and rel["tokens_equal"]):
+        bad.append(f"12a: {rel}")
+
+    # (b) gemma3-4b at published widths on 2x2
+    t0 = time.perf_counter()
+    c = SERVE_TP
+    base = cell_config(c)
+    kw = {k: c[k] for k in ("batch", "prompt_len", "new_tokens")}
+    cfgs = {d: dataclasses.replace(base, compute_dtype=d) for d in ("float32", "bfloat16")}
+    want = {d: one_device(cfgs[d], **kw) for d in cfgs}
+    got = run_ranks(mesh_serve_rank, 4, c["mesh"],
+                    [(cfgs[d], _serve_kw(**kw, seq_shard_kv=True)) for d in cfgs])
+    r0 = {d: got[0][i] for i, d in enumerate(cfgs)}
+    rel = _logits_rel(want["float32"], r0["float32"])
+    lg_w = want["bfloat16"]["prefill_logits"].float()
+    bf16_err = float((r0["bfloat16"]["prefill_logits"].float() - lg_w).abs().max())
+    bf16_mean = float(lg_w.abs().mean())
+    want_launch = prefill_launches(base)
+    lat = np.asarray(r0["bfloat16"]["decode_ms"])
+    b = {"config": f"{base.name} n_layers={base.n_layers}, mesh {c['mesh']} "
+                   f"seq_shard_kv, B {c['batch']} x {c['prompt_len']} + {c['new_tokens']}",
+         "reduced": c["reduced"], "f32_logits_rel": rel,
+         "bf16_prefill_max_abs_err": bf16_err, "bf16_mean_abs_logit": bf16_mean,
+         "bf16_tokens_equal": torch.equal(r0["bfloat16"]["tokens"].cpu(),
+                                          want["bfloat16"]["tokens"].cpu()),
+         "prefill_ms": r0["bfloat16"]["prefill_ms"],
+         "decode_p50_ms": float(np.percentile(lat, 50)),
+         "decode_p99_ms": float(np.percentile(lat, 99)),
+         "one_device_prefill_ms": want["bfloat16"]["prefill_ms"],
+         "one_device_decode_p50_ms": float(np.percentile(want["bfloat16"]["decode_ms"], 50)),
+         "gloo_ms_by_rank": [g[1]["gloo_ms"] for g in got],
+         "gloo_share_prefill": [g[1]["gloo_ms"].get("prefill", 0.0) / r0["bfloat16"]["prefill_ms"]
+                                for g in got],
+         "gloo_share_decode": [g[1]["gloo_ms"].get("decode", 0.0) / float(lat.sum())
+                               for g in got],
+         "launches_by_rank": [[g[i]["launches"] for g in got] for i in range(2)],
+         "flash_launches_by_rank": [[g[i]["launches"]["flash_attention"] for g in got]
+                                    for i in range(2)],
+         "flash_launches_want": want_launch["flash_attention"],
+         "peak_mem_gb_by_rank": [[g[i]["peak_mem_gb"] for g in got] for i in range(2)],
+         "one_device_peak_mem_gb": [want[d]["peak_mem_gb"] for d in cfgs],
+         "seconds": time.perf_counter() - t0}
+    out["full_width"] = b
+    log(f"mesh 12b ({card}): {json.dumps(b)} (limits: f32 {TP_LOGITS_REL} of max "
+        f"|logit| and tokens equal; bf16 prefill {LOGITS_REL} * mean |logit|)")
+    if not (rel["prefill"] < TP_LOGITS_REL and rel["decode_max"] < TP_LOGITS_REL
+            and rel["tokens_equal"] and bf16_err <= LOGITS_REL * bf16_mean
+            and all(n == want_launch["flash_attention"]
+                    for row in b["flash_launches_by_rank"] for n in row)):
+        bad.append(f"12b: f32 {rel}, bf16 {bf16_err} against {LOGITS_REL * bf16_mean}, "
+                   f"flash launches {b['flash_launches_by_rank']}")
+    del want, got, r0
+    gc.collect()
+
+    # (c) the other layer kinds at 1x2, one run_ranks call
+    t0 = time.perf_counter()
+    cfgs = [dataclasses.replace(get_config(a).smoke(), compute_dtype="float32")
+            for a in TP_KINDS]
+    want = [one_device(k, **TP_KIND_SERVE) for k in cfgs]
+    got = run_ranks(mesh_serve_rank, 2, "1x2", [(k, _serve_kw(**TP_KIND_SERVE)) for k in cfgs])
+    kinds = {}
+    for i, k in enumerate(cfgs):
+        rel = _logits_rel(want[i], got[0][i])
+        launches = [g[i]["launches"] for g in got]
+        widths = [g[i]["scan_widths"] for g in got]
+        want_l = prefill_launches(k)
+        kinds[k.name] = {"logits_rel": rel, "launches": launches, "scan_widths": widths}
+        di_half = k.d_inner // 2
+        if not (rel["prefill"] < TP_LOGITS_REL and rel["decode_max"] < TP_LOGITS_REL
+                and rel["tokens_equal"]
+                and all(l_ == want_l for l_ in launches)
+                and all(w == [di_half] * want_l["ssm_scan"] for w in widths)):
+            bad.append(f"12c {k.name}: {kinds[k.name]}, want launches {want_l}, scan "
+                       f"widths {di_half}")
+    out["kinds_1x2"] = {"kinds": kinds, "seconds": time.perf_counter() - t0}
+    log(f"mesh 12c, each layer kind's smoke config in f32 at 1x2 against one device "
+        f"({card}): {json.dumps(out['kinds_1x2'])} (limit {TP_LOGITS_REL} of max "
+        f"|logit|, tokens equal; the scan on d_inner / 2 channels)")
+
+    # (d) the launcher's command line at 2x2 on the card
+    from repro_torch.launch.serve import main as serve_main
+    t0 = time.perf_counter()
+    res = serve_main(SERVE_CLI_FLAGS)
+    want_l = prefill_launches(get_config("gemma2-27b").smoke())
+    d = {"flags": SERVE_CLI_FLAGS, "tokens_shape": list(res["tokens"].shape),
+         "launches_by_rank": res["launches_by_rank"],
+         "peak_mem_gb_by_rank": res["peak_mem_gb_by_rank"],
+         "prefill_ms": res["prefill_ms"],
+         "decode_p50_ms": float(np.percentile(res["decode_ms"], 50)),
+         "seconds": time.perf_counter() - t0}
+    out["cli_2x2"] = d
+    log(f"mesh 12d, repro_torch.launch.serve.main {' '.join(SERVE_CLI_FLAGS)} ({card}): "
+        f"{json.dumps(d)}; want tokens [4, 32] and launches {want_l} a rank")
+    if d["tokens_shape"] != [4, 32] or any(l_ != want_l for l_ in d["launches_by_rank"]):
+        bad.append(f"12d: {d}")
+    if bad:
+        fail(f"serving on a mesh: {bad}")
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repo")
@@ -1550,6 +1824,9 @@ def main() -> None:
               dict(B=1, Sq=4600, Sk=4600, **PREFIX_ATTN)]
     # phase 11b's shapes: gemma3-4b's local (window 1024) and global layers
     cases += [dict(B=1, Sq=4096, Sk=4096, window=window, **GEMMA3_ATTN)
+              for window in (1024, 0)]
+    # phase 12b's shapes: a model rank's heads of those layers (4 of 8, 2 of 4)
+    cases += [dict(B=1, Sq=4096, Sk=4096, window=window, **TP_ATTN)
               for window in (1024, 0)]
     worst = {}
     for c in cases:
@@ -2622,6 +2899,65 @@ def main() -> None:
     dp = data_parallel_on_the_card(card, disk_dir)
     log(f"data parallel done in {time.perf_counter() - t11:.1f} s")
 
+    # -- 12. serving on a (data, model) mesh, the ranks sharing the card ---------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    tp = serve_on_a_mesh(card, dev)
+    # the kernels at a rank's shapes: 12b's attention (GQA 4/2, D 256, local
+    # and global) and falcon-mamba-7b's scan at model 2 (di 4096): each
+    # against its plain version, then its time beside the plain version's,
+    # its bound and the library call's
+    tp_shapes = {}
+    for window in (1024, 0):
+        c = dict(B=1, S=4096, window=window, **TP_ATTN)
+        q, k, v = qkv(1, c["S"], c["S"], c["Hq"], c["Hkv"], c["D"], torch.bfloat16)
+        akw = dict(scale=c["D"] ** -0.5, softcap=0.0, causal=True, window=window)
+        label = f"12b rank B=1 S={c['S']} Hq={c['Hq']} Hkv={c['Hkv']} D={c['D']} window {window}"
+        err, mean_ref = compare(q, k, v, label, **akw)
+        qp_, kp_ = torch.arange(c["S"], device=dev)[:, None], torch.arange(c["S"], device=dev)[None, :]
+        mask = ((kp_ <= qp_) & (qp_ - kp_ < window)) if window else None
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        row = dict(ms=time_ms(lambda: ops.gqa_attention(q, k, v, **akw)),
+                   plain_ms=time_ms(lambda: ops.gqa_attention_ref(q, k, v, **akw), reps=1),
+                   library_ms=time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                                   is_causal=mask is None,
+                                                   scale=c["D"] ** -0.5, enable_gqa=True)),
+                   max_abs_err=err, mean_abs_ref=mean_ref)
+        row["bound_ms"], row["bound_by"] = attention_bound_ms(
+            1, c["S"], c["Hq"], c["Hkv"], c["D"], True, window, "bfloat16")
+        tp_shapes[f"flash {'local' if window else 'global'}"] = row
+        log(f"time {label} (cap 0; {card}): kernel {row['ms']:.3f} ms, plain "
+            f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
+            f"scaled_dot_product_attention {row['library_ms']:.3f} ms")
+        del q, k, v, qt, kt, vt, mask
+    ts = TP_SCAN
+    sin = scan_inputs(ts["B"], ts["S"], ts["di"], ts["N"], *mixed,
+                      dt_rank=mcfg.ssm.resolved_dt_rank(mcfg.d_model))
+    tp_scan_err, tp_scan_mean = compare_scan(sin, f"falcon-mamba-7b rank at model 2 {ts}")
+    row = dict(ms=time_ms(lambda: scan_ops.selective_scan(*sin), reps=10),
+               plain_ms=time_ms(lambda: ssm_scan_ref(*sin), reps=2),
+               max_abs_err=tp_scan_err, mean_abs_ref=tp_scan_mean, library_ms=None)
+    row["bound_ms"], row["bound_by"], _ = scan_bound_ms(
+        sin, scan_ops.selective_scan(*sin))
+    tp_shapes["scan"] = row
+    log(f"time ssm_scan at a model-2 rank's shape {ts} ({card}): kernel {row['ms']:.3f} "
+        f"ms, plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+        f"({row['bound_by']})")
+    del sin
+    torch.cuda.empty_cache()
+    tp["kernel_shapes"] = tp_shapes
+    log(f"serving on a mesh done in {time.perf_counter() - t12:.1f} s")
+
+    def mesh_launches(name: str) -> dict:
+        """A kernel's launches in each phase-12 run, rank by rank."""
+        return {"12a": [r[name] for r in tp["check_4x2"]["launches"]],
+                "12b f32, bf16": [[r[name] for r in run]
+                                  for run in tp["full_width"]["launches_by_rank"]],
+                "12c": {a: [r[name] for r in v["launches"]]
+                        for a, v in tp["kinds_1x2"]["kinds"].items()},
+                "12d": [r[name] for r in tp["cli_2x2"]["launches_by_rank"]]}
+
     def dp_launches(name: str) -> dict:
         """A kernel's launches in each phase-11 run, rank by rank."""
         out = {f"11a {m}": [r[name] for r in row["launches"]]
@@ -2644,6 +2980,8 @@ def main() -> None:
                                 for k, v in transports.items()},
         "launches_archs": arch_launches,
         "launches_dp": dp_launches("flash_attention"),
+        "launches_mesh": mesh_launches("flash_attention"),
+        "tp_shapes": {k: v for k, v in tp_shapes.items() if k != "scan"},
         "shape": (f"B={Bs} S={S} Hq={g['Hq']} Hkv={g['Hkv']} D={g['D']} bf16 "
                   f"causal window=0 cap={g['cap']} (serve global layer)"),
         "max_abs_err": worst["serve_shape"],
@@ -2673,6 +3011,8 @@ def main() -> None:
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:51",
         "launches": scan_launches["ssm_scan"],
         "launches_train": train_launches["ssm_scan"],
+        "launches_mesh": mesh_launches("ssm_scan"),
+        "tp_shape": {**tp_shapes["scan"], "shape": TP_SCAN},
         "shape": (f"B={ss['B']} S={ss['S']} di={ss['di']} N={ss['N']} xi/B/C "
                   f"bf16, dt/A/h0 f32 (every falcon-mamba-7b layer's prefill)"),
         "max_abs_err": scan_err,
@@ -2714,7 +3054,7 @@ def main() -> None:
         "ms_normal_values": pack_normal_ms,
         "subnormal_share": subnormal_share,
     }], "serve": serve_stats, "intransit": intransit_stats, "train": train_stats,
-        "data_parallel": dp,
+        "data_parallel": dp, "serve_mesh": tp,
         "transports": {k: {m: v[m] for m in ("raw_mb_per_s", "stage_ms_median", "run_s",
                                              "launches", "codec", "replays",
                                              "resent_stripes", "fired", "seconds",

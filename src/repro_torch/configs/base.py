@@ -7,8 +7,9 @@ Left out: ``attn_chunk`` (the reference's XLA chunk size; the port's
 attention is the flash kernel or its plain version, neither of which takes
 a chunk) and ``ShapeConfig``, ``input_specs`` and ``flops_per_step``, which
 describe the reference's XLA dry runs and come with their torch analogue.
-``pad_heads_to`` exists only for tensor-parallel sharding and is refused
-beyond ``n_heads`` until the tensor-parallel multi-device slice brings it.
+``pad_heads_to`` exists only for tensor-parallel sharding: inert query
+heads, each KV group padded alike, so that ``model`` divides the heads
+(``train.sharding.head_plan``).
 """
 from __future__ import annotations
 
@@ -62,7 +63,8 @@ class ArchConfig:
     layer_pattern: tuple[str, ...] = ("dense",)
 
     attn_window: int = 0          # local-attention window
-    pad_heads_to: int = 0         # tensor-parallel head padding: not ported
+    pad_heads_to: int = 0         # inert q heads so heads % TP == 0 (must
+                                  # keep pad_heads_to % n_kv_heads == 0)
     qkv_bias: bool = False
     attn_softcap: float = 0.0     # attention logit soft-capping
     logit_softcap: float = 0.0    # final-logit soft-capping
@@ -104,11 +106,12 @@ class ArchConfig:
                                  ("rglru", self.rglru, "RGLRUConfig")):
             if kind in self.layer_pattern and sub is None:
                 raise ValueError(f"{kind} layers need an {field}")
-        if self.pad_heads_to > self.n_heads:
+        if self.pad_heads_to > self.n_heads and \
+                self.pad_heads_to % self.n_kv_heads:
             raise ValueError(
-                f"pad_heads_to {self.pad_heads_to} > n_heads {self.n_heads}: "
-                f"padded heads exist only for tensor-parallel sharding, which "
-                f"comes with the tensor-parallel multi-device slice")
+                f"pad_heads_to {self.pad_heads_to} is no multiple of n_kv_heads "
+                f"{self.n_kv_heads}: each KV group pads to pad_heads_to // "
+                f"n_kv_heads query heads")
 
     @property
     def layer_kinds(self) -> tuple[str, ...]:

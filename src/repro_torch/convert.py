@@ -7,7 +7,7 @@ a list with one tree per period.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -26,10 +26,17 @@ def tensor_from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_jax(tree: Any, cfg, device: str | torch.device = "cuda") -> Any:
+def params_from_jax(tree: Any, cfg, device: str | torch.device = "cuda",
+                    mesh=None, rules: Optional[dict] = None) -> Any:
     """The reference's tree (stacked ``scan`` entries) -> the port's tree
-    (one entry per period). Works for cache trees too."""
+    (one entry per period). Works for cache trees too. With a ``mesh`` and
+    its ``rules``, this rank's shard of a parameter tree
+    (``train.sharding.shard_tree``)."""
     dev = resolve_device(device)
+    if mesh is not None:
+        from repro_torch.models.transformer import transformer_specs
+        from repro_torch.train.sharding import shard_tree
+        tree = shard_tree(tree, transformer_specs(cfg), mesh, rules, cfg)
     return unstack_scan(tree_map(lambda a: tensor_from_numpy(a, dev), tree),
                         cfg)
 

@@ -13,9 +13,9 @@ one card may hold every rank. gloo's point-to-point takes CPU tensors only,
 so the collectives below move a CUDA tensor through a pinned host buffer
 (``AxisGroup``); the time of those copies belongs to the wire.
 
-A mesh with ``model`` > 1 raises: tensor and expert parallelism come with
-the tensor-parallel slice of the port. A mesh of one rank needs no process
-group and runs without ``torch.distributed``.
+``model`` > 1 gives tensor and expert parallelism to serving
+(``train.sharding.TPContext``); training refuses it (``TP_SLICE``). A mesh
+of one rank needs no process group and runs without ``torch.distributed``.
 """
 from __future__ import annotations
 
@@ -26,8 +26,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-TP_SLICE = ("tensor and expert parallelism (a mesh with model > 1) come with "
-            "the tensor-parallel slice of the port")
+from repro_torch.device import resolve_device
+
+TP_SLICE = ("training with model > 1 (Megatron's autograd pair around the "
+            "model all-reduce, the vocab-parallel cross-entropy, the grad norm "
+            "and ZeRO-1 over TP shards, fsdp_experts) comes with the training "
+            "tensor-parallel slice of the port; serving takes model > 1")
 
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:
@@ -137,8 +141,6 @@ class Mesh:
             raise ValueError(f"shape {shape} and axes {axis_names} differ in length")
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, (int(n) for n in shape)))
-        if self.shape.get("model", 1) > 1:
-            raise NotImplementedError(f"mesh {self.shape}: {TP_SLICE}")
         n = math.prod(self.shape.values())
         world = dist.get_world_size() if dist.is_initialized() else 1
         if world != n:
@@ -182,8 +184,7 @@ def dp_axes(mesh) -> tuple[str, ...]:
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """16x16 = 256 ranks a pod; 2x16x16 = 512 multi-pod. Raises, as the
-    reference does, when the world is not that size; at that size it raises
-    for model = 16 (``TP_SLICE``)."""
+    reference does, when the world is not that size."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     n = math.prod(shape)
@@ -199,6 +200,22 @@ def make_debug_mesh(data: int = 2, model: int = 2, pod: int = 0) -> Mesh:
     if pod:
         return Mesh((pod, data, model), ("pod", "data", "model"))
     return Mesh((data, model), ("data", "model"))
+
+
+def build_mesh(spec: str) -> Mesh:
+    """The mesh a launcher's ``--mesh`` names, built on this rank (after
+    ``init_process_group`` when it has more than one rank)."""
+    if spec in ("single", "multi"):
+        return make_production_mesh(multi_pod=spec == "multi")
+    return Mesh(*parse_mesh(spec))
+
+
+def rank_device(device: str) -> torch.device:
+    """This rank's device: the CPU, or the card ``rank % cards``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None and dist.is_initialized():
+        dev = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+    return dev
 
 
 def parse_mesh(spec: str) -> tuple[tuple[int, ...], tuple[str, ...]]:

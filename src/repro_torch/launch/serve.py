@@ -4,23 +4,33 @@ Prefill a batch of prompts, then decode greedily (or by sampling at a
 temperature) with the KV cache updated in place. Optionally stages
 per-step decode latencies in transit (SAVIME) like a real fleet would.
 The port of ``repro/launch/serve.py``, with ``--device`` (CUDA unless the
-CPU is asked for); ``--mesh`` takes 1x1 only (one device): serving on a
-mesh comes with the tensor-parallel slice.
+CPU is asked for). ``--mesh DxM`` or ``PxDxM`` serves on a mesh, one
+process a rank (``launch.spawn``, gloo groups; on CUDA every rank on a card
+of the machine, all on one when it has one), with tensor and expert
+parallelism over ``model`` and the batch's rows over the DP axes; rank 0
+alone logs and stages. The reference reads ``PxDxM`` as (data, model, pod)
+(ROADMAP, reference caveats); the port reads it as its train launcher does.
+``single`` and ``multi`` need 256 and 512 ranks, as the reference's do.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
+import math
 import time
 from typing import Any, Callable, ContextManager, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import analysis, transport
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import resolve_device
+from repro_torch.kernels import LAUNCHES
+from repro_torch.launch.mesh import build_mesh, parse_mesh, rank_device
+from repro_torch.launch.spawn import run_ranks
 from repro_torch.models import Model
 from repro_torch.train import ServeSetup
 
@@ -41,7 +51,9 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
           prefix_embed: Optional[torch.Tensor] = None,
           log: Callable[[str], None] = print,
           phase: Callable[[str], ContextManager[Any]] = _no_phase,
-          sink: Optional[Any] = None) -> dict:
+          sink: Optional[Any] = None, mesh: Optional[str] = None,
+          seq_shard_kv: bool = False, make_sink: Optional[Callable] = None,
+          keep_logits: bool = False) -> dict:
     """Serve `batch` prompts of `prompt_len` tokens and generate `new_tokens`
     tokens each. Parameters and prompts are made from `seed` unless given.
     `prefix_embed` (B, P, d_model), precomputed frontend embeddings
@@ -52,29 +64,113 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
     in-transit `sink`, each decode step's latency (ms, float32) is staged
     as "decode_ms" at that step.
 
+    `mesh` (``DxM``, ``PxDxM``, ``single`` or ``multi``; None is one
+    device) serves on a mesh, one process a rank (``launch.spawn``): each
+    rank draws its shard of the seed's params and serves its rows of the
+    batch (all of them where the DP ranks do not divide it), with
+    `seq_shard_kv` the global KV caches sequence-sharded over ``data``.
+    There `params` and `sink` cannot be given: rank 0 alone logs, gathers
+    the tokens and, with `make_sink` (a picklable callable returning a
+    sink), stages the decode latencies.
+
     Returns tokens (B, new_tokens), the prefill's last-token logits (B, V),
-    prefill_ms, decode_ms (one per decode step), and the params and prompts
-    used (params in the compute dtype)."""
-    dev = resolve_device(device)
+    with `keep_logits` each decode step's (B, new_tokens - 1, V) on the
+    host, prefill_ms, decode_ms (one per decode step), the kernels'
+    launches and the peak device memory in GB (on a mesh rank 0's, and
+    every rank's in ``launches_by_rank`` and ``peak_mem_gb_by_rank``), and
+    the params and prompts used (params in the compute dtype; on a mesh
+    None)."""
+    kw = dict(batch=batch, prompt_len=prompt_len, new_tokens=new_tokens,
+              temperature=temperature, seed=seed, device=device,
+              prompts=prompts, prefix_embed=prefix_embed,
+              seq_shard_kv=seq_shard_kv, keep_logits=keep_logits)
+    if mesh is None:
+        return _serve(cfg, params=params, log=log, phase=phase, sink=sink, **kw)
+    shape, _ = parse_mesh(mesh)
+    kw["make_sink"] = make_sink
+    if math.prod(shape) == 1 or mesh in ("single", "multi"):
+        # one process: the mesh of one rank, or the production meshes,
+        # which raise here without their 256 or 512 ranks
+        return serve_rank(mesh, cfg, kw, params=params, log=log, phase=phase,
+                          sink=sink)
+    if params is not None or sink is not None:
+        raise ValueError("on a mesh each rank draws its own shard and rank 0 "
+                         "makes its sink: pass no params or sink (make_sink)")
+    return run_ranks(serve_rank, math.prod(shape), mesh, cfg, kw)[0]
+
+
+def serve_rank(mesh_spec: str, cfg: ArchConfig, kw: dict, *,
+               params: Optional[Any] = None,
+               log: Callable[[str], None] = print,
+               phase: Callable[[str], ContextManager[Any]] = _no_phase,
+               sink: Optional[Any] = None) -> dict:
+    """This rank's part of ``serve`` on the mesh ``mesh_spec``: rank 0
+    logs and, with ``make_sink`` in ``kw``, makes the sink, stages, flushes
+    and closes it. Returns rank 0's results (host tensors) on rank 0 and
+    each rank's launches and peak memory on every rank."""
+    kw = dict(kw)
+    make_sink = kw.pop("make_sink", None)
+    mesh = build_mesh(mesh_spec)
+    root = mesh.rank == 0
+    if root and make_sink is not None:
+        sink = make_sink()
+    try:
+        out = _serve(cfg, mesh=mesh, params=params,
+                     log=log if root else (lambda m: None), phase=phase,
+                     sink=sink if root else None, **kw)
+        if root and make_sink is not None:
+            sink.flush()
+    finally:
+        if root and make_sink is not None:
+            sink.close()
+    if root and make_sink is not None:
+        out["gateway"] = sink.session.stats.gateway
+    if mesh.size > 1:
+        for name in ("launches", "peak_mem_gb"):
+            out[f"{name}_by_rank"] = [None] * mesh.size
+            dist.all_gather_object(out[f"{name}_by_rank"], out[name])
+        out["params"] = None
+        if not root:
+            return {k: out[k] for k in ("launches", "peak_mem_gb")}
+        out = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+               for k, v in out.items()}
+    return out
+
+
+def _serve(cfg: ArchConfig, *, batch: int, prompt_len: int, new_tokens: int,
+           temperature: float, seed: int, device, params, prompts,
+           prefix_embed, log, phase, sink, seq_shard_kv: bool = False,
+           keep_logits: bool = False, mesh=None) -> dict:
+    dev = rank_device(device)
     model = Model(cfg)
-    setup = ServeSetup(model)
     B, S, N = batch, prompt_len, new_tokens
+    setup = ServeSetup(model, mesh, seq_shard_kv=seq_shard_kv, global_batch=B)
     P = 0 if prefix_embed is None else prefix_embed.shape[1]
     log(f"[serve] {cfg.name}: {cfg.param_count() / 1e6:.1f}M params, "
-        f"{cfg.n_layers} layers on {dev}, batch {B} x prompt "
-        f"{f'{P} prefix + ' if P else ''}{S} + {N} new")
+        f"{cfg.n_layers} layers on {dev}"
+        + (f", mesh {mesh.shape}{' seq_shard_kv' if seq_shard_kv else ''}"
+           if mesh is not None else "")
+        + f", batch {B} x prompt {f'{P} prefix + ' if P else ''}{S} + {N} new")
+    if dev.type == "cuda":
+        torch.empty(0, device=dev)      # the allocator exists before its reset
+        torch.cuda.reset_peak_memory_stats(dev)
+    launches0 = dict(LAUNCHES)
+    rows = setup.rows(B)
+    # the global caches' slots split evenly over `data` under seq_shard_kv
+    n_seq = setup.tp.seq.size if setup.tp is not None and setup.tp.seq else 1
+    max_len = -(-(P + S + N) // n_seq) * n_seq
     with torch.inference_mode():
         if params is None:
-            params = model.init(seed, dev)
+            params = setup.init_params(seed, dev)
         params = model.compute_params(params)
         gen = torch.Generator(device=dev).manual_seed(seed + 1)
         if prompts is None:
             prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                                     device=dev)
-        prefill = setup.prefill_fn(max_len=P + S + N)
-        prompt_batch = {"tokens": prompts}
+        prefill = setup.prefill_fn(max_len=max_len)
+        prompt_batch = {"tokens": prompts.to(dev)[rows]}
         if prefix_embed is not None:
-            prompt_batch["prefix_embed"] = prefix_embed
+            prompt_batch["prefix_embed"] = prefix_embed.to(dev)[rows]
         decode = setup.decode_fn()
 
         def sample(lg):
@@ -91,10 +187,10 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
             tok = sample(logits)
             _sync(dev)
             prefill_ms = (time.perf_counter() - t0) * 1e3
-        out, lat = [tok], []
+        out, lat, kept = [tok], [], []
         with phase("decode"):
             for i in range(N - 1):
-                pos = torch.full((B,), P + S + i, dtype=torch.int32,
+                pos = torch.full((tok.shape[0],), P + S + i, dtype=torch.int32,
                                  device=dev)
                 t1 = time.perf_counter()
                 logits, cache = decode(params, cache,
@@ -103,9 +199,18 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
                 _sync(dev)
                 lat.append((time.perf_counter() - t1) * 1e3)
                 out.append(tok)
+                if keep_logits:
+                    kept.append(logits.cpu())
                 if sink is not None:
                     sink.stage_array("decode_ms", np.float32([lat[-1]]), step=i)
         tokens = torch.cat(out, dim=1)
+        step_logits = torch.stack(kept, 1) if keep_logits else None
+        if setup.tp is not None and setup.tp.dp is not None:
+            # every DP rank's rows, in order, on each rank
+            tokens, first_logits = (setup.tp.gather(t, setup.tp.dp, dim=0)
+                                    for t in (tokens, first_logits))
+            if keep_logits:
+                step_logits = setup.tp.gather(step_logits, setup.tp.dp, dim=0)
     if lat:
         lat_ms = np.asarray(lat)
         log(f"[serve] prefill {prefill_ms:.1f} ms; decode p50 "
@@ -114,8 +219,12 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
             f"({B * 1e3 / lat_ms.mean():.1f} tok/s aggregate)")
     log(f"[serve] sample (req 0): {tokens[0, :16].tolist()}")
     return {"tokens": tokens, "prefill_logits": first_logits,
+            "step_logits": step_logits,
             "prefill_ms": prefill_ms, "decode_ms": lat, "params": params,
-            "prompts": prompts}
+            "prompts": prompts,
+            "launches": {k: LAUNCHES[k] - launches0[k] for k in LAUNCHES},
+            "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                            if dev.type == "cuda" else 0.0)}
 
 
 def _pool_tenancy(args):
@@ -131,12 +240,15 @@ def _pool_tenancy(args):
         token or name
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
+    """Parse ``argv`` and serve; on a mesh of more than one rank, one process
+    a rank. Returns ``serve``'s results (rank 0's)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--mesh", default="1x1",
-                    help="only 1x1: the port serves on one device")
+                    help="DxM or PxDxM (one process a rank; tensor and "
+                         "expert parallelism over M), single or multi")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--new-tokens", type=int, default=32)
@@ -195,10 +307,11 @@ def main(argv=None) -> None:
                          "kill:target=staging:0,at_s=0.5') or a JSON plan "
                          "file; exercises retry/replay (DESIGN.md §15)")
     args = ap.parse_args(argv)
-    if args.mesh != "1x1":
-        ap.error(f"--mesh {args.mesh}: the port serves on one device; "
-                 "serving on a mesh (tensor parallelism, the sequence-sharded "
-                 "KV cache) comes with the tensor-parallel multi-device slice")
+    try:
+        parse_mesh(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
+    mesh = None if args.mesh == "1x1" else args.mesh
     if args.analyzer and not args.intransit:
         ap.error("--analyzer requires --intransit")
     if (args.tenant or args.quota_mb) and not args.pool:
@@ -208,11 +321,13 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    run = functools.partial(serve, cfg, batch=args.batch,
+                            prompt_len=args.prompt_len,
+                            new_tokens=args.new_tokens,
+                            temperature=args.temperature, device=args.device,
+                            mesh=mesh)
     if not args.intransit:
-        serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
-              new_tokens=args.new_tokens, temperature=args.temperature,
-              device=args.device)
-        return
+        return run()
 
     from repro_torch.core import (InTransitConfig, InTransitSink,
                                   SavimeServer, StagingServer)
@@ -255,18 +370,21 @@ def main(argv=None) -> None:
             stack.callback(FaultScheduler(plan, targets).start().stop)
             print(f"[serve] fault plan armed (seed={plan.seed}, "
                   f"{len(plan.rules)} rule(s))")
-        sink = InTransitSink(sink_addr, InTransitConfig(
+        make_sink = functools.partial(InTransitSink, sink_addr, InTransitConfig(
             tar_prefix="serve", transport=args.transport,
             n_channels=args.channels, wire_format=args.wire_format,
             coalesce_bytes=args.coalesce_kb << 10,
             page_bytes=args.page_kb << 10, spill_dir=args.spill_dir,
             dedup=args.dedup, gateway=bool(args.pool), tenant=tenant_token,
             codec=args.codec, decode_at=args.decode_at))
+        # one device: the sink is this process's; on a mesh rank 0 makes
+        # its own, stages, flushes and closes it
+        sink = make_sink() if mesh is None else None
         try:
-            serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
-                  new_tokens=args.new_tokens, temperature=args.temperature,
-                  device=args.device, sink=sink)
-            sink.flush()
+            out = (run(sink=sink) if sink is not None
+                   else run(make_sink=make_sink))
+            if sink is not None:
+                sink.flush()
             if args.analyzer:
                 if pool is not None:
                     from repro_torch.gateway import RouterSession
@@ -282,12 +400,14 @@ def main(argv=None) -> None:
                     print(f"[serve] analyzer[{s.analyzer}] over "
                           f"{res.shape} staged latencies: {s.payload}")
         finally:
-            sink.close()
-        gw = sink.session.stats.gateway
+            if sink is not None:
+                sink.close()
+        gw = sink.session.stats.gateway if sink is not None else out["gateway"]
         if gw:
             print(f"[serve] gateway: {gw['totals']} across "
                   f"{gw['live_backends']}/{gw['n_backends']} backends; "
                   f"tenants: {gw['tenants']}")
+    return out
 
 
 if __name__ == "__main__":

@@ -36,10 +36,9 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data import (DataConfig, SyntheticLM, batch_to_device,
                               device_put_batch)
-from repro_torch.device import resolve_device
 from repro_torch.kernels import LAUNCHES, reset_launches
-from repro_torch.launch.mesh import (TP_SLICE, Mesh, make_production_mesh,
-                                     parse_mesh)
+from repro_torch.launch.mesh import (TP_SLICE, build_mesh, parse_mesh,
+                                     rank_device)
 from repro_torch.launch.spawn import run_ranks
 from repro_torch.models import Model
 from repro_torch.runtime import Supervisor, SupervisorConfig
@@ -61,22 +60,6 @@ def stage_egress(sink, egress: dict, step: int) -> dict:
             staged[name] = to_host(egress[key])
             sink.stage_array(name, staged[name], step=step)
     return staged
-
-
-def build_mesh(spec: str) -> Mesh:
-    """The mesh ``--mesh`` names, built on this rank (after
-    ``init_process_group`` when it has more than one rank)."""
-    if spec in ("single", "multi"):
-        return make_production_mesh(multi_pod=spec == "multi")
-    return Mesh(*parse_mesh(spec))
-
-
-def rank_device(device: str) -> torch.device:
-    """This rank's device: the CPU, or the card ``rank % cards``."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None and dist.is_initialized():
-        dev = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
-    return dev
 
 
 def build_parser() -> argparse.ArgumentParser:

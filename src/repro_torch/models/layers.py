@@ -2,16 +2,23 @@
 
 Parameters are nested dicts of tensors. Each is declared once as a
 ``ParamSpec`` (shape, dtype, initializer); ``init_params`` materializes a
-spec tree on one device from one ``torch.Generator``. Sharding annotations
-have no counterpart on one device (the reference's ``constrain`` is a no-op
-there); specs carry the reference's logical axes all the same, which
-ZeRO-1 reads on a mesh to pick the dimension it splits.
+spec tree on one device from one ``torch.Generator``, whole or as one
+rank's shard. Specs carry the reference's logical axes, which the sharding
+rules map onto a mesh (``train.sharding``) and ZeRO-1 reads to pick the
+dimension it splits.
+
+On a mesh with ``model`` > 1 the layers take a ``tp`` context
+(``train.sharding.TPContext``) and hold their shards: a column-parallel
+``dense`` needs nothing more; ``row_dense`` sums its partial over ``model``
+in f32 and rounds once, as GSPMD all-reduces the dot's f32 accumulator (the
+reference's default, ``_LOWP_COLLECTIVES = False``). Without ``tp`` every
+layer is the one-device one, bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +48,9 @@ class ParamSpec:
     # the reference's logical axes, one name (or None) a dim; () for a
     # cache spec. The port reads them for ZeRO-1's split (optim.zero1_plan)
     axes: tuple = ()
+    # the sharded axis holds this many equal blocks side by side, each cut
+    # alike (mamba's in_proj: [x | z])
+    parts: int = 1
 
     def materialize(self, generator: torch.Generator,
                     device: torch.device) -> torch.Tensor:
@@ -88,8 +98,21 @@ def tree_leaves(tree: Tree) -> list:
 
 
 def init_params(spec_tree: Tree, generator: torch.Generator,
-                device: torch.device) -> Tree:
-    return tree_map(lambda s: s.materialize(generator, device), spec_tree)
+                device: torch.device, cut: Optional[Callable] = None) -> Tree:
+    """Every leaf drawn whole, in order, from ``generator``. With ``cut``
+    (spec -> that leaf's share, ``train.sharding.local_slice``) each leaf
+    keeps only its share, copied out before the next is drawn: a rank's
+    bits are the one-device init's."""
+    if cut is None:
+        return tree_map(lambda s: s.materialize(generator, device), spec_tree)
+    from repro_torch.train.sharding import is_whole, take
+
+    def one(s):
+        cuts = cut(s)
+        whole = s.materialize(generator, device)
+        return whole if is_whole(cuts, s.shape) else take(whole, cuts).clone()
+
+    return tree_map(one, spec_tree)
 
 
 def stack_specs(spec_tree: Tree, n: int) -> Tree:
@@ -127,6 +150,14 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w.to(x.dtype)
 
 
+def row_dense(x: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
+    """``dense`` with ``w``'s rows (the contraction) sharded over ``model``:
+    each rank's f32 partial, summed over the ranks and rounded once."""
+    if tp is None or tp.m == 1:
+        return dense(x, w)
+    return tp.reduce(x.float() @ w.float(), x.dtype)
+
+
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return torch.tanh(x / cap) * cap if cap else x
 
@@ -151,11 +182,12 @@ def mlp_specs(d_model: int, d_ff: int, glu: bool, pdt) -> dict[str, ParamSpec]:
     return specs
 
 
-def mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp(params: dict, x: torch.Tensor, act: str, tp=None) -> torch.Tensor:
+    """``wi``/``wg`` column-parallel, ``wo`` row-parallel under ``tp``."""
     a = ACTS[act](dense(x, params["wi"]))
     if "wg" in params:
         a = a * dense(x, params["wg"])
-    return dense(a, params["wo"])
+    return row_dense(a, params["wo"], tp)
 
 
 # -- RoPE -------------------------------------------------------------------
@@ -185,15 +217,29 @@ def embed_specs(vocab: int, d_model: int, tie: bool, pdt) -> dict[str, ParamSpec
 
 
 def embed(params: dict, tokens: torch.Tensor, scale: bool,
-          dtype: torch.dtype) -> torch.Tensor:
-    x = params["table"].to(dtype)[tokens]
+          dtype: torch.dtype, tp=None) -> torch.Tensor:
+    """Under ``tp`` the table's rows (the vocab) are sharded: each rank
+    looks up the tokens in its range, zero elsewhere, and the sum over
+    ``model`` (one nonzero term a token, so exact) is the lookup."""
+    table = params["table"]
+    if tp is None or tp.m == 1:
+        x = table.to(dtype)[tokens]
+    else:
+        lo = tp.r * table.shape[0]              # this rank's vocab rows
+        mine = (tokens >= lo) & (tokens < lo + table.shape[0])
+        local = torch.where(mine, tokens - lo, 0)
+        x = torch.where(mine[..., None], table.to(dtype)[local], 0)
+        x = tp.reduce(x, dtype)
     if scale:
         # the scale is rounded to the compute dtype first, as the reference does
-        x = x * torch.tensor(math.sqrt(params["table"].shape[1]), dtype=dtype,
+        x = x * torch.tensor(math.sqrt(table.shape[1]), dtype=dtype,
                              device=x.device)
     return x
 
 
-def unembed(params: dict, x: torch.Tensor, tie: bool) -> torch.Tensor:
+def unembed(params: dict, x: torch.Tensor, tie: bool, tp=None) -> torch.Tensor:
+    """Under ``tp`` the vocab is sharded: each rank's logits, gathered over
+    ``model`` in vocab order."""
     w = params["table"].T if tie else params["head"]
-    return x @ w.to(x.dtype)
+    lg = x @ w.to(x.dtype)
+    return lg if tp is None else tp.gather(lg)

@@ -31,11 +31,21 @@ class Model:
         """The reference's spec tree (stacked ``scan`` entries)."""
         return tfm.transformer_specs(self.cfg)
 
-    def init(self, seed: int = 0, device: str | torch.device = "cuda") -> Tree:
-        """Seeded init on one device; ``scan`` entries come out per period."""
+    def init(self, seed: int = 0, device: str | torch.device = "cuda",
+             mesh=None, rules: Optional[dict] = None) -> Tree:
+        """Seeded init; ``scan`` entries come out per period. With a
+        ``mesh`` and its ``rules`` (``train.sharding.make_rules``) this
+        rank's shard: every leaf drawn whole in the one-device order and cut
+        to its share, so its bits are the one-device init's."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return tfm.unstack_scan(init_params(self.param_specs(), gen, dev),
+        cut = None
+        if mesh is not None:
+            from repro_torch.train.sharding import local_slice
+
+            def cut(spec):
+                return local_slice(spec, mesh, rules, self.cfg)
+        return tfm.unstack_scan(init_params(self.param_specs(), gen, dev, cut),
                                 self.cfg)
 
     def compute_params(self, params: Tree) -> Tree:
@@ -58,15 +68,23 @@ class Model:
         return cast(self.param_specs(), params)
 
     # -- caches -----------------------------------------------------------
-    def cache_specs(self, B: int, T: int) -> Tree:
-        return tfm.cache_specs(self.cfg, B, T)
+    def cache_specs(self, B: int, T: int, mesh=None,
+                    rules: Optional[dict] = None) -> Tree:
+        """The caches of a global batch of B rows and T slots; with a
+        ``mesh`` and its ``rules`` this rank's share of them."""
+        specs = tfm.cache_specs(self.cfg, B, T)
+        if mesh is None:
+            return specs
+        from repro_torch.train.sharding import local_specs
+        return local_specs(specs, mesh, rules, self.cfg)
 
-    def init_cache(self, B: int, T: int,
-                   device: str | torch.device = "cuda") -> Tree:
+    def init_cache(self, B: int, T: int, device: str | torch.device = "cuda",
+                   mesh=None, rules: Optional[dict] = None) -> Tree:
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)  # zeros / neg-ones: unused
-        return tfm.unstack_scan(init_params(self.cache_specs(B, T), gen, dev),
-                                self.cfg)
+        return tfm.unstack_scan(
+            init_params(self.cache_specs(B, T, mesh, rules), gen, dev),
+            self.cfg)
 
     # -- forward ----------------------------------------------------------
     def loss_fn(self, params: Tree, batch: dict, xent_chunk: int = 512):
@@ -93,23 +111,28 @@ class Model:
         return loss, {"nll": nll, "z2": z2, **aux}
 
     def prefill(self, params: Tree, tokens: torch.Tensor,
-                prefix_embed: Optional[torch.Tensor] = None, max_len: int = 0):
+                prefix_embed: Optional[torch.Tensor] = None, max_len: int = 0,
+                tp=None):
         """Returns (last_token_logits (B,V), cache). ``prefix_embed``
         (B,P,M) goes before the tokens. max_len = cache capacity (>= P +
-        prompt length; gives decode headroom)."""
+        prompt length; gives decode headroom). On a mesh (``tp``, a
+        ``train.sharding.TPContext``) ``params`` and the rows are this
+        rank's, the cache comes out as this rank's share, and the logits
+        are whole on every rank."""
         hidden, _, cache = tfm.apply_transformer(
             params, tokens, cfg=self.cfg, prefix_embed=prefix_embed,
-            return_cache=True, cache_len=max_len)
-        logits = tfm.logits_from_hidden(params, hidden[:, -1:], self.cfg)
+            return_cache=True, cache_len=max_len, tp=tp)
+        logits = tfm.logits_from_hidden(params, hidden[:, -1:], self.cfg, tp)
         return logits[:, 0], cache
 
     def decode_step(self, params: Tree, tokens: torch.Tensor,
-                    pos: torch.Tensor, cache: Tree):
+                    pos: torch.Tensor, cache: Tree, tp=None):
         """tokens: (B,1); pos: (B,). Returns (logits (B,V), cache), the
         cache updated in place."""
         hidden, _, cache = tfm.apply_transformer(
-            params, tokens, cfg=self.cfg, positions=pos[:, None], cache=cache)
-        logits = tfm.logits_from_hidden(params, hidden, self.cfg)
+            params, tokens, cfg=self.cfg, positions=pos[:, None], cache=cache,
+            tp=tp)
+        logits = tfm.logits_from_hidden(params, hidden, self.cfg, tp)
         return logits[:, 0], cache
 
 

@@ -9,6 +9,14 @@ dropped (a dropped token reaches the output through the residual only),
 a gather to a dense (G, E, C, M) tensor, the expert products, and an f32
 scatter-add combine. The reference computes the expert products outside
 any Pallas kernel (XLA's einsum), so here they are ``torch.einsum``.
+
+Expert parallelism (``tp``): the experts are over ``model``. The router's
+expert columns are too; its f32 logits are gathered over ``model`` before
+top-k, so every rank routes alike. A rank runs its own experts on their
+slots and scatters its share in f32; the shares are summed over ``model``
+and rounded once. The shared and dense MLPs are tensor-parallel. Decode
+routes the whole batch as one group, as the reference does, so where the
+batch rows are split over DP the tokens are gathered first.
 """
 from __future__ import annotations
 
@@ -49,7 +57,7 @@ def capacity(T: int, k: int, E: int, factor: float) -> int:
 
 
 def route(router: torch.Tensor, xg: torch.Tensor, *, top_k: int,
-          capacity_factor: float) -> dict:
+          capacity_factor: float, tp=None) -> dict:
     """Routing and the dispatch plan of tokens xg (G, T, M), in f32.
 
     Returns the router ``logits`` and ``probs`` (G, T, E); ``onehot``
@@ -57,11 +65,14 @@ def route(router: torch.Tensor, xg: torch.Tensor, *, top_k: int,
     ``C``; ``token_for_slot`` (G, E*C), the token each expert slot takes
     (0 where the slot is empty); ``w_for_slot`` (G, E*C), its renormalised
     top-k weight (0 where empty); and ``dropped`` (G,), the choices past
-    their expert's capacity in each group."""
+    their expert's capacity in each group. Under ``tp`` ``router`` holds
+    this rank's experts and the logits are gathered over ``model``."""
     G, T, _ = xg.shape
-    E, k = router.shape[1], top_k
-    C = capacity(T, k, E, capacity_factor)
     logits = xg.float() @ router.float()
+    if tp is not None:
+        logits = tp.gather(logits)
+    E, k = logits.shape[-1], top_k
+    C = capacity(T, k, E, capacity_factor)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, k, dim=-1)                   # (G,T,k)
     top_w = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -85,21 +96,33 @@ def route(router: torch.Tensor, xg: torch.Tensor, *, top_k: int,
             "dropped": (~keep).sum(-1)}
 
 
-def moe_block(params: dict, x: torch.Tensor, *, cfg):
+def moe_block(params: dict, x: torch.Tensor, *, cfg, tp=None):
     """x: (B,S,M). Returns (y, aux losses {"moe_lb", "moe_z"} as f32
     scalars)."""
     m = cfg.moe
     B, S, M = x.shape
     E, k = m.n_experts, m.top_k
-    xg = x.reshape(1, B, M) if S == 1 else x   # decode: one group of B tokens
+    rows = None
+    if S == 1 and tp is not None and tp.dp is not None:
+        # decode routes the global batch as one group: every DP rank's rows
+        rows = slice(tp.dp.index * B, (tp.dp.index + 1) * B)
+        x_all = tp.gather(x, tp.dp, dim=0)
+    else:
+        x_all = x
+    xg = x_all.reshape(1, -1, M) if S == 1 else x_all  # decode: one group
     G, T, _ = xg.shape
     plan = route(params["router"], xg, top_k=k,
-                 capacity_factor=m.capacity_factor)
-    C, token_for_slot = plan["C"], plan["token_for_slot"]
+                 capacity_factor=m.capacity_factor, tp=tp)
+    C = plan["C"]
+    # this rank's experts and their slots (all of them without tp)
+    E_local = params["wi"].shape[0]
+    e_lo = tp.r * E_local if tp is not None else 0
+    mine = slice(e_lo * C, (e_lo + E_local) * C)
+    token_for_slot = plan["token_for_slot"][:, mine]
 
     # expert compute
     g_idx = torch.arange(G, device=x.device)[:, None]
-    xe = xg[g_idx, token_for_slot].reshape(G, E, C, M)
+    xe = xg[g_idx, token_for_slot].reshape(G, E_local, C, M)
     h = torch.einsum("gecm,emf->gecf", xe, params["wi"].to(xe.dtype))
     a = ACTS[cfg.mlp_act](h)
     if "wg" in params:
@@ -107,17 +130,22 @@ def moe_block(params: dict, x: torch.Tensor, *, cfg):
     ye = torch.einsum("gecf,efm->gecm", a, params["wo"].to(xe.dtype))
 
     # combine: an f32 scatter-add, dropped and empty slots carrying weight 0
-    contrib = plan["w_for_slot"][..., None] * ye.reshape(G, E * C, M).float()
-    rows = (g_idx * T + token_for_slot).reshape(-1)
+    contrib = (plan["w_for_slot"][:, mine][..., None]
+               * ye.reshape(G, E_local * C, M).float())
+    dest = (g_idx * T + token_for_slot).reshape(-1)
     y = torch.zeros((G * T, M), dtype=torch.float32, device=x.device)
-    y = y.index_add(0, rows, contrib.reshape(G * E * C, M))
-    y = y.to(x.dtype).reshape(B, S, M)
+    y = y.index_add(0, dest, contrib.reshape(G * E_local * C, M))
+    y = (y.to(x.dtype) if tp is None or tp.m == 1
+         else tp.reduce(y, x.dtype))
+    y = y.reshape(-1, S, M)
+    if rows is not None:
+        y = y[rows]
 
     # always-on paths
     if "shared" in params:
-        y = y + mlp(params["shared"], x, cfg.mlp_act)
+        y = y + mlp(params["shared"], x, cfg.mlp_act, tp)
     if "dense" in params:
-        y = y + mlp(params["dense"], x, cfg.mlp_act)
+        y = y + mlp(params["dense"], x, cfg.mlp_act, tp)
 
     # aux losses
     frac_tokens = plan["onehot"].float().mean(dim=(0, 1)) * k       # (E,)

@@ -10,6 +10,11 @@ doubling (Hillis–Steele) scan in plain torch: ⌈log₂ S⌉ elementwise passe
 over (B, S, d_rnn) in f32, where a loop over the sequence would launch a
 few kernels a step. Its sums are taken in another order than JAX's, so the
 two agree to f32 rounding, not bit for bit.
+
+Under tensor parallelism (``tp``) ``rnn`` is over ``model``: a rank holds
+its channels of ``w_x``, ``w_y``, the conv, the biases, ``lam`` and the
+state, and its blocks of the block-diagonal gates (their blocks are its
+channels); ``w_out`` is row-parallel.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ParamSpec, dense
+from repro_torch.models.layers import ParamSpec, dense, row_dense
 from repro_torch.models.ssm import _causal_conv
 
 _C = 8.0
@@ -76,11 +81,12 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
 
 
 def rglru_block(params: dict, x: torch.Tensor, *, cfg,
-                cache: Optional[dict] = None, return_cache: bool = False):
+                cache: Optional[dict] = None, return_cache: bool = False,
+                tp=None):
     """Griffin recurrent mixer. x: (B,S,M). Returns (y, new_cache): with a
     cache and S == 1 one decode step, else the scan over the sequence."""
     B, S, _ = x.shape
-    dr = cfg.d_rnn
+    dr = params["lam"].shape[0]           # this rank's channels
 
     y_branch = F.gelu(dense(x, params["w_y"]), approximate="tanh")
     xb = dense(x, params["w_x"])
@@ -106,7 +112,7 @@ def rglru_block(params: dict, x: torch.Tensor, *, cfg,
     else:
         h, h_last = rglru_scan(a, gated_x, h0)
 
-    out = dense(h.to(x.dtype) * y_branch, params["w_out"])
+    out = row_dense(h.to(x.dtype) * y_branch, params["w_out"], tp)
     new_cache = ({"conv": new_conv, "h": h_last}
                  if (cache is not None or return_cache) else None)
     return out, new_cache

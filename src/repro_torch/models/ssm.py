@@ -5,6 +5,12 @@ Prefill runs the scan through ``kernels.ssm_scan.ops.selective_scan`` (the
 CUDA kernel on the card, its plain version on the CPU), where the reference
 runs its chunked ``lax.scan``, whose Pallas drop-in is the TPU kernel. The
 one-token decode step stays plain torch, as it stays XLA in the reference.
+
+Under tensor parallelism (``tp``) ``inner`` is over ``model``: a rank holds
+its channels of x and of z in ``in_proj``, of the conv, ``dt_proj``,
+``A_log``, ``D`` and the state, and the scan kernel runs on them;
+``x_proj`` and ``out_proj`` are row-parallel (dt, B and C are reduced in
+f32 before they are split).
 """
 from __future__ import annotations
 
@@ -14,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan.ops import selective_scan
-from repro_torch.models.layers import ParamSpec, dense
+from repro_torch.models.layers import ParamSpec, dense, row_dense
 
 def mamba_specs(cfg) -> dict[str, ParamSpec]:
     s = cfg.ssm
@@ -22,7 +28,8 @@ def mamba_specs(cfg) -> dict[str, ParamSpec]:
     R = s.resolved_dt_rank(M)
     pdt = cfg.param_dtype
     return {
-        "in_proj": ParamSpec((M, 2 * di), pdt, axes=("embed", "inner")),
+        "in_proj": ParamSpec((M, 2 * di), pdt, axes=("embed", "inner"),
+                             parts=2),
         "conv_w": ParamSpec((s.d_conv, di), pdt, scale=1.0, axes=("conv", "inner")),
         "conv_b": ParamSpec((di,), pdt, init="zeros", axes=("inner",)),
         "x_proj": ParamSpec((di, R + 2 * N), pdt, axes=("inner", "dt")),
@@ -56,11 +63,12 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def mamba_block(params: dict, x: torch.Tensor, *, cfg,
-                cache: Optional[dict] = None, return_cache: bool = False):
+                cache: Optional[dict] = None, return_cache: bool = False,
+                tp=None):
     """x: (B,S,M). Returns (y, new_cache)."""
     B, S, _ = x.shape
     s = cfg.ssm
-    di, N = cfg.d_inner, s.d_state
+    di, N = params["D"].shape[0], s.d_state      # this rank's channels
     R = s.resolved_dt_rank(cfg.d_model)
 
     xi, z = dense(x, params["in_proj"]).split(di, dim=-1)
@@ -69,7 +77,7 @@ def mamba_block(params: dict, x: torch.Tensor, *, cfg,
                                 conv_carry)
     xi = F.silu(xi)
 
-    dt_r, Bm, Cm = dense(xi, params["x_proj"]).split([R, N, N], dim=-1)
+    dt_r, Bm, Cm = row_dense(xi, params["x_proj"], tp).split([R, N, N], dim=-1)
     # a compute-dtype product plus the f32 bias promotes to f32, as in JAX
     dt = F.softplus(dense(dt_r, params["dt_proj"]) + params["dt_bias"])
     A = -torch.exp(params["A_log"].float())            # (di,N), negative
@@ -91,7 +99,7 @@ def mamba_block(params: dict, x: torch.Tensor, *, cfg,
 
     y = y + params["D"].to(x.dtype) * xi
     y = y * F.silu(z)
-    out = dense(y, params["out_proj"])
+    out = row_dense(y, params["out_proj"], tp)
     new_cache = {"conv": new_conv, "h": h} \
         if (cache is not None or return_cache) else None
     return out, new_cache

@@ -12,6 +12,10 @@ Under autograd each block is rematerialized when ``cfg.remat`` is not
 the block in the backward pass, as the reference's ``jax.checkpoint`` does.
 The reference's "dots" and "comm" policies save some of a block's products;
 here they are treated as "full" (they change memory, not what is computed).
+
+On a mesh one ``tp`` context (``train.sharding.TPContext``: the mesh, the
+rules, the head plan) goes through every block and the unembed; without
+it every path is the one-device one, bit for bit.
 """
 from __future__ import annotations
 
@@ -125,34 +129,37 @@ def unstack_scan_specs(spec_tree: dict, cfg) -> dict:
 
 def apply_block(kind: str, p: dict, x: torch.Tensor, *, cfg,
                 positions: torch.Tensor, cache: Optional[dict],
-                return_cache: bool, cache_len: int = 0):
+                return_cache: bool, cache_len: int = 0, tp=None):
     """One layer. Returns (x, aux, new_cache), aux the layer's MoE losses
     ({} for every kind but moe)."""
     eps, plus = cfg.norm_eps, cfg.scale_embeddings
     h = rms_norm(x, p["ln1"], eps, plus)
     if kind == "mamba":
         out, new_cache = ssm_lib.mamba_block(
-            p["mamba"], h, cfg=cfg, cache=cache, return_cache=return_cache)
+            p["mamba"], h, cfg=cfg, cache=cache, return_cache=return_cache,
+            tp=tp)
         return x + out, {}, new_cache
     if kind == "rglru":
         out, new_cache = rglru_lib.rglru_block(
-            p["rglru"], h, cfg=cfg, cache=cache, return_cache=return_cache)
+            p["rglru"], h, cfg=cfg, cache=cache, return_cache=return_cache,
+            tp=tp)
         x = x + out
-        x = x + mlp(p["mlp"], rms_norm(x, p["ln2"], eps, plus), cfg.mlp_act)
+        x = x + mlp(p["mlp"], rms_norm(x, p["ln2"], eps, plus), cfg.mlp_act,
+                    tp)
         return x, {}, new_cache
     a_out, new_cache = attn_lib.attention(
         p["attn"], h, cfg=cfg, kind="global" if kind == "moe" else kind,
         positions=positions, cache=cache, return_cache=return_cache,
-        cache_len=cache_len)
+        cache_len=cache_len, tp=tp)
     if cfg.post_norms:
         a_out = rms_norm(a_out, p["ln1_post"], eps, plus)
     x = x + a_out
     h2 = rms_norm(x, p["ln2"], eps, plus)
     aux = {}
     if kind == "moe":
-        f_out, aux = moe_lib.moe_block(p["moe"], h2, cfg=cfg)
+        f_out, aux = moe_lib.moe_block(p["moe"], h2, cfg=cfg, tp=tp)
     else:
-        f_out = mlp(p["mlp"], h2, cfg.mlp_act)
+        f_out = mlp(p["mlp"], h2, cfg.mlp_act, tp)
     if cfg.post_norms:
         f_out = rms_norm(f_out, p["ln2_post"], eps, plus)
     return x + f_out, aux, new_cache
@@ -160,7 +167,7 @@ def apply_block(kind: str, p: dict, x: torch.Tensor, *, cfg,
 
 def apply_stack(params: dict, x: torch.Tensor, *, cfg,
                 positions: torch.Tensor, cache: Optional[dict] = None,
-                return_cache: bool = False, cache_len: int = 0):
+                return_cache: bool = False, cache_len: int = 0, tp=None):
     """Runs all layers in order. Returns (x, aux, new_cache or None), aux
     the MoE losses summed over the layers."""
     pat = cfg.layer_pattern
@@ -174,7 +181,7 @@ def apply_stack(params: dict, x: torch.Tensor, *, cfg,
     def block(kind, p, x, c_in):
         return apply_block(kind, p, x, cfg=cfg, positions=positions,
                            cache=c_in, return_cache=return_cache,
-                           cache_len=cache_len)
+                           cache_len=cache_len, tp=tp)
 
     remat = (cfg.remat != "none" and torch.is_grad_enabled()
              and not use_cache and not return_cache)
@@ -211,13 +218,14 @@ def apply_transformer(params: dict, tokens: torch.Tensor, *, cfg,
                       positions: Optional[torch.Tensor] = None,
                       prefix_embed: Optional[torch.Tensor] = None,
                       cache: Optional[dict] = None,
-                      return_cache: bool = False, cache_len: int = 0):
+                      return_cache: bool = False, cache_len: int = 0,
+                      tp=None):
     """Returns (hidden (B,S_total,M), aux, new_cache), aux the MoE losses
     summed over the layers. ``prefix_embed`` (B,P,M), precomputed frontend
     embeddings (paligemma's patches), goes before the embedded tokens, so
     S_total = P + S. Logits are the caller's."""
     cdt = to_dtype(cfg.compute_dtype)
-    x = embed(params["embed"], tokens, cfg.scale_embeddings, cdt)
+    x = embed(params["embed"], tokens, cfg.scale_embeddings, cdt, tp)
     if prefix_embed is not None:
         x = torch.cat([prefix_embed.to(cdt), x], dim=1)
     B, S, _ = x.shape
@@ -226,11 +234,13 @@ def apply_transformer(params: dict, tokens: torch.Tensor, *, cfg,
                                  device=x.device).expand(B, S)
     x, aux, new_cache = apply_stack(params, x, cfg=cfg, positions=positions,
                                     cache=cache, return_cache=return_cache,
-                                    cache_len=cache_len)
+                                    cache_len=cache_len, tp=tp)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps, cfg.scale_embeddings)
     return x, aux, new_cache
 
 
-def logits_from_hidden(params: dict, hidden: torch.Tensor, cfg) -> torch.Tensor:
-    lg = unembed(params["embed"], hidden, cfg.tie_embeddings)
+def logits_from_hidden(params: dict, hidden: torch.Tensor, cfg,
+                       tp=None) -> torch.Tensor:
+    """The logits, gathered over ``model`` under ``tp`` before the softcap."""
+    lg = unembed(params["embed"], hidden, cfg.tie_embeddings, tp)
     return softcap(lg, cfg.logit_softcap)

@@ -1,20 +1,31 @@
 """Logical-axis -> mesh-axis sharding rules, the port of
 ``repro/train/sharding.py``.
 
-DP over (pod, data); TP/EP over model (the tensor-parallel slice); SP (the
-sequence-sharded KV cache) over data for long-context decode (serving on a
-mesh). ``make_rules`` is the reference's, rule for rule. Of them the port
-applies ``batch`` (which rows of the global batch a rank takes,
-``shard_batch``) and ZeRO-1's extra DP split of the moments
-(``optim.optimizer.zero1_plan``); the model rules wait for ``model`` > 1.
+DP over (pod, data); TP/EP over model; SP (the sequence-sharded KV cache)
+over data for long-context decode. ``make_rules`` is the reference's, rule
+for rule. Where the reference hands the rules to GSPMD, the port turns them
+into each rank's share: ``local_slice`` cuts one spec, ``shard_tree`` a
+whole tree, and ``TPContext`` carries the mesh, the rules and the head plan
+into the model, whose layers meet over ``model`` (and, in SP decode, over
+``data``) only where GSPMD would insert a collective. ``batch`` picks the
+rows of the global batch a rank takes (``shard_batch``), and ZeRO-1 splits
+the moments over DP (``optim.optimizer.zero1_plan``).
+
+An axis is cut by what it means where that differs from a contiguous cut of
+the stored axis: the flat ``qkv`` and ``kv_flat`` projections on whole heads
+(``head_plan``), and an axis that holds ``ParamSpec.parts`` equal blocks
+side by side (mamba's ``in_proj``, [x | z]) block by block.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.launch.mesh import dp_axes  # noqa: F401  (re-exported)
+from repro_torch.models.layers import tree_map
 
 
 def make_rules(mesh, cfg=None, *, seq_shard_kv: bool = False,
@@ -77,13 +88,10 @@ def batch_rows(mesh, rules, n_rows: int) -> slice:
     dp = rules["batch"]
     if dp is None:
         return slice(0, n_rows)
-    axes = (dp,) if isinstance(dp, str) else tuple(dp)
-    n, index = 1, 0
-    for a in axes:
-        n, index = n * mesh.shape[a], index * mesh.shape[a] + mesh.coords[a]
+    n, index = _axis_share(mesh, dp)
     if n_rows % n:
         raise ValueError(f"a batch of {n_rows} rows does not split over {n} "
-                         f"DP ranks ({axes})")
+                         f"DP ranks ({dp})")
     per = n_rows // n
     return slice(index * per, (index + 1) * per)
 
@@ -95,3 +103,188 @@ def shard_batch(mesh, rules, batch: dict) -> dict:
     rows = batch_rows(mesh, rules, next(iter(batch.values())).shape[0])
     return {k: (np.ascontiguousarray(v[rows]) if isinstance(v, np.ndarray)
                 else v[rows].contiguous()) for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# Each rank's share of a spec
+# ---------------------------------------------------------------------------
+
+
+def head_plan(cfg, model_n: int, model_index: int) -> tuple[int, int, int, int]:
+    """(h_lo, h_hi, kv_lo, kv_hi): the query heads this model rank computes,
+    a contiguous range of the real heads, and the KV heads they read (head h
+    reads h // G), which are its own where ``model`` divides the KV heads
+    and shared with its neighbours where it does not (MQA).
+
+    With ``pad_heads_to`` above n_heads the reference pads each KV group of
+    G query heads to Gp = pad_heads_to // Hkv (the pad heads inert) and
+    shards the padded heads: where ``model`` divides them, a rank owns a
+    range of the padded heads, computes the real ones among it and skips
+    the pad. Otherwise the real heads split evenly; where ``model`` divides
+    neither, this raises."""
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    G, pad = Hq // Hkv, cfg.pad_heads_to
+    if pad > Hq and pad % model_n == 0:
+        Gp, per = pad // Hkv, pad // model_n
+
+        def real_before(p):          # the real heads among padded 0..p-1
+            return (p // Gp) * G + min(p % Gp, G)
+        h_lo = real_before(model_index * per)
+        h_hi = real_before((model_index + 1) * per)
+    elif Hq % model_n == 0:
+        per = Hq // model_n
+        h_lo, h_hi = model_index * per, (model_index + 1) * per
+    else:
+        raise ValueError(f"model axis {model_n} divides neither n_heads {Hq} "
+                         f"nor pad_heads_to {pad} of {cfg.name}")
+    if h_hi == h_lo:
+        return h_lo, h_hi, h_lo // G, h_lo // G
+    return h_lo, h_hi, h_lo // G, (h_hi - 1) // G + 1
+
+
+def _axis_share(mesh, rule) -> tuple[int, int]:
+    """(n, index): how many ranks share a dimension that ``rule`` maps onto
+    mesh axes, and this rank's position among them (mixed radix, the first
+    axis major, as the reference lays out a tuple of mesh axes)."""
+    axes = (rule,) if isinstance(rule, str) else tuple(rule)
+    n, index = 1, 0
+    for a in axes:
+        n, index = n * mesh.shape[a], index * mesh.shape[a] + mesh.coords[a]
+    return n, index
+
+
+Cuts = tuple  # one list of (start, stop) ranges a dimension
+
+
+def local_slice(spec, mesh, rules: dict, cfg=None) -> Cuts:
+    """This rank's share of ``spec`` (its shape and logical ``axes``): for
+    each dimension, the ranges of the stored axis it keeps, concatenated in
+    order. ``qkv`` and ``kv_flat`` are cut on the heads of ``head_plan``
+    (``cfg`` gives the heads); an axis of ``spec.parts`` blocks keeps its
+    share of each block; every other axis that a rule maps onto the mesh
+    splits evenly and raises where it does not divide."""
+    cuts, used = [], set()
+    axes = spec.axes or (None,) * len(spec.shape)
+    for dim, (a, n) in enumerate(zip(axes, spec.shape)):
+        rule = rules.get(a) if a else None
+        if rule is None:
+            cuts.append([(0, n)])
+            continue
+        mesh_axes = (rule,) if isinstance(rule, str) else tuple(rule)
+        if used & set(mesh_axes):
+            raise ValueError(f"spec {spec.shape} {axes}: two dimensions over "
+                             f"mesh axis {sorted(used & set(mesh_axes))}")
+        used |= set(mesh_axes)
+        k, index = _axis_share(mesh, rule)
+        if a in ("qkv", "kv_flat") and rule == "model":
+            h_lo, h_hi, kv_lo, kv_hi = head_plan(cfg, k, index)
+            lo, hi = (h_lo, h_hi) if a == "qkv" else (kv_lo, kv_hi)
+            cuts.append([(lo * cfg.head_dim, hi * cfg.head_dim)])
+            continue
+        parts = spec.parts if rule == "model" else 1
+        if n % (k * parts):
+            raise ValueError(f"spec {spec.shape} {axes}: dimension {dim} "
+                             f"({a}, {n}) does not split over {k} ranks of "
+                             f"{mesh_axes}" + (f" in {parts} parts" if parts > 1 else ""))
+        block = n // parts
+        per = block // k
+        cuts.append([(p * block + index * per, p * block + (index + 1) * per)
+                     for p in range(parts)])
+    return tuple(cuts)
+
+
+def is_whole(cuts: Cuts, shape: tuple) -> bool:
+    return all(c == [(0, n)] for c, n in zip(cuts, shape))
+
+
+def cut_shape(cuts: Cuts) -> tuple[int, ...]:
+    return tuple(sum(b - a for a, b in c) for c in cuts)
+
+
+def take(x, cuts: Cuts):
+    """``x`` (a tensor or a numpy array) cut to ``cuts``: a view where each
+    dimension keeps one range, else a copy."""
+    for dim, ranges in enumerate(cuts):
+        if ranges == [(0, x.shape[dim])]:
+            continue
+        if isinstance(x, np.ndarray):
+            pieces = [np.take(x, range(a, b), axis=dim) for a, b in ranges]
+            x = pieces[0] if len(pieces) == 1 else np.concatenate(pieces, dim)
+        else:
+            pieces = [x.narrow(dim, a, b - a) for a, b in ranges]
+            x = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
+    return x
+
+
+def local_specs(spec_tree, mesh, rules: dict, cfg=None):
+    """``spec_tree`` with every spec's shape cut to this rank's share."""
+    return tree_map(lambda s: dataclasses.replace(
+        s, shape=cut_shape(local_slice(s, mesh, rules, cfg))), spec_tree)
+
+
+def shard_tree(tree, spec_tree, mesh, rules: dict, cfg=None):
+    """This rank's shard of a whole ``tree`` (numpy arrays or tensors, in
+    ``spec_tree``'s layout: the reference's, with stacked ``scan`` entries).
+    A cut leaf is a copy of its share, so the whole can be freed."""
+    def cut(spec, x):
+        cuts = local_slice(spec, mesh, rules, cfg)
+        if is_whole(cuts, spec.shape):
+            return x
+        part = take(x, cuts)
+        return part.copy() if isinstance(part, np.ndarray) else part.clone()
+
+    def walk(spec, x):
+        if isinstance(x, dict):
+            return {k: walk(spec[k], x[k]) for k in x}
+        return cut(spec, x)
+
+    return walk(spec_tree, tree)
+
+
+# ---------------------------------------------------------------------------
+# The model's view of the mesh
+# ---------------------------------------------------------------------------
+
+
+class TPContext:
+    """What the layers need of the mesh: the ``model`` group (TP and EP),
+    this rank's heads (``head_plan``), the ``data`` group where the global
+    KV caches are sequence-sharded (``seq``, else None), and the DP group
+    where the batch rows are split (``dp``, else None), which MoE decode
+    routes over as one group, as the reference's global batch is.
+
+    Partial sums travel in f32 and are rounded once to the compute dtype;
+    gathers travel in f32 and come back in the tensor's dtype."""
+
+    def __init__(self, mesh, rules: dict, cfg):
+        self.mesh, self.rules, self.cfg = mesh, rules, cfg
+        self.model = mesh.groups["model"]
+        self.m, self.r = self.model.size, self.model.index
+        self.heads = head_plan(cfg, self.m, self.r)
+        h_lo, h_hi, kv_lo, kv_hi = self.heads
+        n_q, n_kv = h_hi - h_lo, kv_hi - kv_lo
+        G = cfg.n_heads // cfg.n_kv_heads
+        kv_of = [h // G - kv_lo for h in range(h_lo, h_hi)]
+        uniform = n_kv and n_q % n_kv == 0 and all(
+            kv_of[i] == i // (n_q // n_kv) for i in range(n_q))
+        # the KV head each local query head reads, where the grouping is
+        # not G' consecutive heads a KV head (None where it is)
+        self.kv_index = None if (uniform or not n_q) else kv_of
+        seq = rules.get("kv_seq")
+        self.seq = (mesh.groups[seq] if seq and mesh.groups[seq].size > 1
+                    else None)
+        self.dp = (mesh.dp if rules.get("batch") is not None and mesh.dp.size > 1
+                   else None)
+
+    def reduce(self, partial: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The sum over ``model`` of an f32 partial, rounded once to dtype."""
+        return self.model.all_reduce_sum(partial.float()).to(dtype)
+
+    def gather(self, t: torch.Tensor, group=None, dim: int = -1) -> torch.Tensor:
+        """Every rank's ``t`` of ``group`` (default ``model``) concatenated
+        along ``dim``, in group order."""
+        group = group or self.model
+        if group.size == 1:
+            return t
+        wire = t if t.dtype in (torch.float32, torch.int32, torch.int64) else t.float()
+        return torch.cat(group.all_gather(wire.contiguous()), dim=dim).to(t.dtype)

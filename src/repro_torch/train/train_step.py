@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.staging_pack import ops as pack_ops
+from repro_torch.launch.mesh import TP_SLICE
 from repro_torch.models.layers import ParamSpec, tree_leaves, tree_map
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import unstack_scan_specs
@@ -108,10 +109,12 @@ class TrainSetup:
                                  "mesh: pass mesh=")
             self.compress, self.zero1 = False, None
             return
+        if mesh.shape.get("model", 1) > 1:
+            raise NotImplementedError(f"mesh {mesh.shape}: {TP_SLICE}")
         if cfg.fsdp_experts and mesh.shape.get("data", 1) > 1:
             raise NotImplementedError(
                 "fsdp_experts (expert weights sharded over data) comes with "
-                "the tensor-parallel slice of the port")
+                "the training tensor-parallel slice of the port")
         self.compress = cfg.compress_pods and mesh.shape.get("pod", 1) > 1
         self.zero1 = (Zero1(self.spec_tree, params, mesh.dp)
                       if cfg.opt.zero1 and mesh.dp.size > 1 else None)

@@ -180,3 +180,72 @@ def supervised(shape, axes, directory, fail_at):
     return {"restarts": sup.restarts,
             "losses": [m["loss"] for m in sup.metrics_log],
             "params": to_reference_layout(state["params"])}
+
+
+# -- serving on a (data, model) mesh ------------------------------------------
+
+
+def serve_jobs(shape, jobs):
+    """Each job (a dict: ``arch``, ``cfg_kw``, the reference's ``tree`` as
+    numpy, ``prompts`` (B, S), ``n_dec``, ``seq_shard_kv``) served on this
+    rank of a (data, model) mesh of ``shape``: this rank's shard of the
+    converted params, its rows of the prompts, prefill and ``n_dec`` greedy
+    steps on its own tokens. Returns for each job the logits of the
+    prefill and each step (rows gathered over DP), the tokens, this rank's
+    shard of the converted tree and of its own sharded init (reference
+    layout), and the shapes of its caches, from the prefill and from
+    ``Model.init_cache``."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.train import ServeSetup
+    mesh = Mesh(shape, ("data", "model"))
+    out = []
+    for job in jobs:
+        cfg = dataclasses.replace(get_config(job["arch"]).smoke(), **job["cfg_kw"])
+        model = Model(cfg)
+        B, S = job["prompts"].shape
+        setup = ServeSetup(model, mesh, seq_shard_kv=job.get("seq_shard_kv", False),
+                           global_batch=B)
+        tp = setup.tp
+        params = params_from_jax(job["tree"], cfg, "cpu", mesh=mesh,
+                                 rules=setup.rules)
+        n_seq = tp.seq.size if tp.seq is not None else 1
+        max_len = -(-(S + job["n_dec"]) // n_seq) * n_seq
+        rows = setup.rows(B)
+        logits, tokens = [], []
+        with torch.inference_mode():
+            run = model.compute_params(params)
+            lg, cache = setup.prefill_fn(max_len)(
+                run, {"tokens": torch.from_numpy(job["prompts"][rows])})
+            cache_shapes = [tuple(t.shape) for t in tree_leaves(cache)]
+            for i in range(job["n_dec"] + 1):
+                logits.append(lg)
+                tok = lg.argmax(-1)[:, None]
+                tokens.append(tok)
+                if i == job["n_dec"]:
+                    break
+                pos = torch.full((tok.shape[0],), S + i, dtype=torch.int32)
+                lg, cache = setup.decode_fn()(run, cache, {"tokens": tok, "pos": pos})
+        logits, tokens = torch.stack(logits, 1), torch.cat(tokens, 1)
+        if tp.dp is not None:
+            logits, tokens = (tp.gather(t, tp.dp, dim=0) for t in (logits, tokens))
+        res = {"logits": logits.numpy(), "tokens": tokens.numpy(),
+               "cache_shapes": cache_shapes, "coords": mesh.coords,
+               "init_cache_shapes": [tuple(t.shape) for t in tree_leaves(
+                   model.init_cache(B, max_len, "cpu", mesh, setup.rules))]}
+        if job.get("shards"):
+            res["shard"] = to_reference_layout(params)
+            res["init"] = to_reference_layout(
+                model.init(seed=3, device="cpu", mesh=mesh, rules=setup.rules))
+        out.append(res)
+    return out
+
+
+def train_setup_on(shape):
+    """Build the (data, model) mesh of ``shape`` and a TrainSetup on it.
+    Returns the mesh's shape and what the setup raised."""
+    mesh = Mesh(shape, ("data", "model"))
+    try:
+        TrainSetup(Model(smoke_config()), TrainConfig(egress="none"), mesh)
+    except NotImplementedError as e:
+        return mesh.shape, str(e)
+    return mesh.shape, None

@@ -108,8 +108,15 @@ def test_config_needs_the_sub_config_of_its_kinds(arch, field, sub):
 
 
 def test_config_refuses_tensor_parallel_head_padding():
-    with pytest.raises(ValueError, match="multi-device"):
-        dataclasses.replace(get_config("paligemma-3b"), pad_heads_to=16)
+    """Padding the heads for tensor parallelism is taken where each KV
+    group pads alike (the reference's rule pad_heads_to % n_kv_heads == 0)
+    and refused where it does not."""
+    assert dataclasses.replace(get_config("paligemma-3b"),
+                               pad_heads_to=16).pad_heads_to == 16
+    assert dataclasses.replace(get_config("gemma2-27b"),
+                               pad_heads_to=48).pad_heads_to == 48
+    with pytest.raises(ValueError, match="no multiple of n_kv_heads 16"):
+        dataclasses.replace(get_config("gemma2-27b"), pad_heads_to=40)
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)

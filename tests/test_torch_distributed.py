@@ -107,10 +107,14 @@ def test_mesh_coords_and_groups_at_2x2x1():
 
 
 def test_meshes_the_port_refuses():
-    """model > 1 names the tensor-parallel slice; the production meshes need
-    256 and 512 ranks, as the reference's do; a mesh must match the world."""
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        mesh_mod.make_debug_mesh(1, 2)
+    """A mesh with model > 1 builds (serving takes it), and training on it
+    raises, naming the training tensor-parallel slice; the production
+    meshes need 256 and 512 ranks, as the reference's do; a mesh must match
+    the world."""
+    got = run_ranks(_torch_dist.train_setup_on, 2, (1, 2))
+    for shape, refused in got:
+        assert shape == {"data": 1, "model": 2}
+        assert "training tensor-parallel slice" in refused
     for multi, n in ((False, 256), (True, 512)):
         with pytest.raises(RuntimeError, match=f"need {n} devices"):
             mesh_mod.make_production_mesh(multi_pod=multi)

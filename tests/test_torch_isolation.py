@@ -4,8 +4,8 @@ brings) or anything of repro; every port module imports with all of them
 blocked; entry points refuse to run on the CPU unless asked to; the serve
 and train launchers take the reference's data-plane flags (the transports,
 striped channels, coalescing, the staging pool with tenancy, fault plans)
-and stage through each, and refuse only the multi-device ones (serve on a
-mesh other than 1x1, train on a mesh with model > 1); the quickstart twin
+and stage through each, and refuse only what the port does not take (a
+malformed mesh, train on a mesh with model > 1); the quickstart twin
 runs on the CPU; chip_smoke.py fails without a GPU and outside a
 checkout."""
 import ast
@@ -110,14 +110,18 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_serve_cli_rejects_a_mesh(capsys):
-    """A mesh other than 1x1 is the multi-device slice's: argparse's exit
-    code 2 before anything runs."""
+    """A mesh string that names no mesh: argparse's exit code 2 before
+    anything runs (serving on a mesh: tests/test_torch_tensor_parallel.py;
+    the production meshes raise without their 256 and 512 ranks)."""
     from repro_torch.launch.serve import main
-    with pytest.raises(SystemExit) as e:
+    for bad in ("--mesh=2x", "--mesh=2x0", "--mesh=2x2x2x2"):
+        with pytest.raises(SystemExit) as e:
+            main(["--arch", "gemma2-27b", "--smoke", "--device", "cpu", bad])
+        assert e.value.code == 2
+        assert "want DxM, PxDxM, single or multi" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="need 256 devices"):
         main(["--arch", "gemma2-27b", "--smoke", "--device", "cpu",
-              "--mesh=2x1"])
-    assert e.value.code == 2
-    assert "multi-device" in capsys.readouterr().err
+              "--mesh=single"])
 
 
 @pytest.fixture()
