@@ -150,6 +150,37 @@ Phases, each of which makes the script exit non-zero when it fails:
      default device (``SERVE_CLI_FLAGS``). Then the flash kernel at a 12b rank's attention shapes and the
      scan at a falcon-mamba-7b rank's (di 4096), each against its plain
      version and timed beside its bound and the library call.
+ 13. training on a (pod, data, model) mesh (``tp_train_on_the_card``), each
+     rank a process on the card (gloo), with tensor and expert parallelism
+     over ``model`` under autograd (Megatron's pair, the vocab-parallel
+     cross-entropy, the grad norm and ZeRO-1 over TP shards): (a) the
+     reference's ``check_sharded_equals_single`` (``TP_CHECK``: gemma2-27b
+     smoke in f32, B 4, S 64, data seed 1) at 1x2 and 2x2, two steps from a
+     seeded state (the first at LR 0) against the one-device step; (b)
+     ``TRAIN_TP``: gemma3-4b at published widths, one period of 6 layers,
+     ``remat="full"``, bf16 compute on f32 params, mesh 1x2x2 (data 2, model
+     2), 1 x 4096 tokens a DP rank, 4 steps, grads_int8 egress, against the
+     one-device step on the same global batch, which runs in a process of
+     its own first; each rank's step time (CUDA events), the ``model``
+     group's collectives (forward; backward with the remat replays; after
+     the backward) and the DP all-reduce in ms and as shares of the step,
+     tokens/s and peak memory a rank; (c) the other layer kinds
+     (``TP_TRAIN_KINDS``: mamba with the scan kernel under ``SelectiveScan``
+     on d_inner / 2 channels, RG-LRU with the shared MQA KV head, MoE over
+     ``model``, paligemma's prefix and MQA, gemma3's qk-norm) at smoke size
+     in f32 on 1x2, llama4 also at 2x2 with ``fsdp_experts``, and on one
+     device falcon-mamba smoke's gradients through the scan kernel against
+     the plain scan's; (d) the reference's ``check_reshard_restore``
+     (``RESHARD``: falcon-mamba smoke saved at (data, model) (1, 4),
+     restored at (4, 1) and (2, 2) and on one device), then one step at
+     (2, 2) from the restored state against one device's; (e) the train
+     launcher with ``TP_LAUNCHER_FLAGS`` (gemma2-27b smoke, mesh 2x1x2,
+     compress_pods, grads_int8 egress, in transit, 20 steps). Estimated
+     before its first run on the card, from phase 11's and 12's readings:
+     (a), (c), (d) ~60 s (eight spawns of 2-4 ranks at ~8 s to reach the
+     card, smoke steps of tens of ms); (b) ~90 s (the one-device process
+     ~30 s with its 5 GB of params written out, four ranks' start and init
+     ~20 s, 4 steps of ~5 s, mostly gloo); (e) ~30 s: about three minutes.
 
 The pack kernel is checked in phase 3 too, byte for byte against its plain
 version (reference cases, the codec's ragged sizes, exact ties, the full
@@ -210,6 +241,37 @@ once an attention layer a prefill on every rank (6 in (b)) and never in
 decode; (c) the scan once a mamba layer a rank, each launch on d_inner / 2
 channels; (d) rank 0's tokens (4, 32) and the flash kernel once a layer a
 rank.
+
+Phase 13's gates, set before its first run on the card:
+- (a), (c) and (d), each mesh against the one-device step: loss within
+  1e-5 relative and grad_norm 1e-4 at each step; after the first step (LR
+  0) every param within 1e-4 of its leaf's max and both moments within
+  ``TP_MOMENT_REL`` (5e-4); the second step's update of each leaf within
+  1e-2 (Frobenius, relative); every rank's params bit for bit rank 0's; the
+  launches a rank exact: the flash kernel once an attention layer a step
+  on the rank's heads (gemma2 3 a step, recurrentgemma 1, llama4 3,
+  paligemma 2, gemma3 7; the backward recomputes through the plain version
+  and launches none; no remat at smoke size), the scan once a mamba layer
+  a step (falcon-mamba 2) on d_inner / 2 channels, no pack;
+- (b) step 1's loss within 1e-3 relative and grad norm within 1e-2 of the
+  one-device step's; the params after step 2 within 1e-2 of one device's,
+  relative Frobenius over the whole tree; the DP ranks of each model rank
+  the same param bits after every step (two 64-bit checksums); launches
+  exact a rank a step: the flash kernel 6 layers x 2 (remat), the pack
+  kernel once on rank 0 (the egress, its sample gathered over ``model``)
+  and never elsewhere; finite losses. If the four ranks do not fit on the
+  card, the slice runs at 1x1x2 and says so;
+- (c) falcon-mamba's gradients through the kernel within 1e-6 of each
+  leaf's max |g| of the plain scan's (the scan is bit for bit the plain
+  version, so the bits are expected equal; the run prints whether they
+  are), the kernel launched once a mamba layer;
+- (d) the whole state restored at (4, 1), (2, 2) and on one device bit for
+  bit the saved one;
+- (e) the loss falls, SAVIME holds 20 diagnostics, each rank's launches
+  exact (the flash kernel 3 layers x 20; the pack kernel 2 x 20, rank 0
+  3 x 20: each model rank quantizes the whole flat in the ring), and each
+  rank's pod wire bytes 2 (n-1)/n R (QBLOCK + 4) a step, R the whole
+  tree's rows (the reference's flat is the whole tree's).
 
 The last lines are a JSON summary of the kernels, the card line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -409,6 +471,50 @@ TP_LOGITS_REL = 1e-4
 # local layers), and a falcon-mamba-7b rank's scan at model 2 (di 8192 / 2)
 TP_ATTN = dict(Hq=4, Hkv=2, D=256, cap=0.0, causal=True)
 TP_SCAN = dict(B=4, S=4600, di=4096, N=16)
+# phase 13, training on a (pod, data, model) mesh, the ranks sharing the card.
+# (a) the reference's check_sharded_equals_single: gemma2-27b smoke in f32, B
+# 4, S 64, data seed 1, at meshes 1x2 and 2x2 ((pod, data, model) (1, 1, 2)
+# and (1, 2, 2)); two steps from a seeded state (the first at LR 0) against
+# the one-device step, under the reference's gates
+TP_CHECK = dict(arch="gemma2-27b", global_batch=4, seq_len=64, data_seed=1,
+                state_seed=7, steps=2, peak_lr=1e-2, warmup_steps=2, total_steps=10,
+                meshes=((1, 1, 2), (1, 2, 2)))
+TP_LOSS_REL, TP_GNORM_REL, TP_PARAM_REL = 1e-5, 1e-4, 1e-4
+# the moments after step 0 hold the reduced gradients: each leaf's max
+# |error| / max |moment| (a rehearsal of (d) on the CPU read 1.05e-4 at
+# falcon-mamba's restored state at 2x2, in f32: the scan amplifies rounding;
+# a gradient that TP gets wrong reads order 1)
+TP_MOMENT_REL = 5e-4
+TP_UPDATE_REL = 1e-2       # step 1's update of each leaf, relative Frobenius
+# (b) gemma3-4b at published widths, one period, mesh (pod, data, model)
+# (1, 2, 2), bf16 compute on f32 params, 1 x 4096 tokens a DP rank
+TRAIN_TP = dict(arch="gemma3-4b", n_layers=6, mesh=(1, 2, 2), rows_per_dp=1,
+                seq_len=4096, steps=4, seed=0, peak_lr=3e-4, warmup_steps=1,
+                egress_blocks=64,
+                reduced="n_layers 34 -> 6 (one period: 5 local at window 1024, 1 "
+                        "global): 1,237,386,752 params, ~619M a rank at model 2; "
+                        "one period is not stacked, so ZeRO-1 splits nothing (the "
+                        "reference's rule) and each rank keeps whole moments for its "
+                        "TP shard")
+TRAIN_TP_LOSS_REL = 1e-3    # step 1's loss against one device, relative
+TRAIN_TP_GNORM_REL = 1e-2   # step 1's grad norm, relative
+# the params after step 2, relative Frobenius over the whole tree (a leaf
+# alone is ill-conditioned where it starts at zero: gemma's norm scales)
+TRAIN_TP_PARAM_REL = 1e-2
+# (c) the other layer kinds at their smoke configs in f32 on 1x2 under (a)'s
+# gates (llama4 also at 2x2 with fsdp_experts), and falcon-mamba smoke's
+# gradients through the scan kernel against the plain scan's on one device
+TP_TRAIN_KINDS = ("falcon-mamba-7b", "recurrentgemma-9b",
+                  "llama4-maverick-400b-a17b", "paligemma-3b", "gemma3-4b")
+SCAN_GRAD_REL = 1e-6        # each leaf's max |g - g_plain| / max |g_plain|
+# (d) the reference's check_reshard_restore: falcon-mamba smoke saved at
+# (data, model) (1, 4), restored at (4, 1) and (2, 2)
+RESHARD = dict(arch="falcon-mamba-7b", state_seed=9, save=(1, 1, 4),
+               restore=((1, 4, 1), (1, 2, 2)))
+# (e) the train launcher at 2x1x2 with compress_pods, on its default device
+TP_LAUNCHER_FLAGS = ["--arch", "gemma2-27b", "--smoke", "--mesh", "2x1x2",
+                     "--compress-pods", "--intransit", "--egress", "grads_int8",
+                     "--steps", "20"]
 
 
 def log(msg: str) -> None:
@@ -428,10 +534,13 @@ def card_line() -> str:
 
 
 def cell_config(cell: dict):
-    """The cell's model: the registry's config at the cell's depth (and
-    param dtype, where the cell sets one)."""
+    """The cell's model: the registry's config (its smoke config where the
+    cell says ``smoke``, as a rehearsal on the CPU does) at the cell's depth
+    (and param dtype, where the cell sets one)."""
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(cell["arch"]), n_layers=cell["n_layers"],
+    cfg = get_config(cell["arch"])
+    return dataclasses.replace(cfg.smoke() if cell.get("smoke") else cfg,
+                               n_layers=cell["n_layers"],
                                **{k: cell[k] for k in ("param_dtype",) if k in cell})
 
 
@@ -1185,6 +1294,38 @@ def dp_full_width(pods: int, disk_dir: str) -> dict:
             "n_blocks": int(reduced.shape[0])}
 
 
+def _leaf_rel(want: dict, got: dict) -> dict:
+    """{leaf: max |want - got| / max |want|} over want's leaves."""
+    out = {}
+    for path, a in _paths(want):
+        b = got
+        for k in path:
+            b = b[k]
+        a64 = np.asarray(a, np.float64)
+        out["/".join(map(str, path))] = float(
+            np.abs(a64 - b).max() / max(np.abs(a64).max(), 1e-30))
+    return out
+
+
+def _update_rel(w0: dict, w1: dict, g0: dict, g1: dict) -> dict:
+    """Each leaf's update from step 0 to step 1, against one device's:
+    ||(g1 - g0) - (w1 - w0)|| / ||w1 - w0||, Frobenius."""
+    out = {}
+    for (path, a0), (_, a1), (_, b0), (_, b1) in zip(
+            _paths(w0), _paths(w1), _paths(g0), _paths(g1)):
+        dw = np.asarray(a1, np.float64) - a0
+        dg = np.asarray(b1, np.float64) - b0
+        out["/".join(map(str, path))] = float(
+            np.linalg.norm(dg - dw) / max(np.linalg.norm(dw), 1e-30))
+    return out
+
+
+def _same_bits(a: dict, b: dict) -> bool:
+    pa, pb = _paths(a), _paths(b)
+    return len(pa) == len(pb) and all(
+        x[0] == y[0] and x[1].tobytes() == y[1].tobytes() for x, y in zip(pa, pb))
+
+
 def data_parallel_on_the_card(card: str, disk_dir: Path) -> dict:
     """Phase 11: (a) DP equals one device, (b) the slice at full width, (c)
     the launcher at the mesh. Fails on any gate; returns the readings."""
@@ -1193,33 +1334,7 @@ def data_parallel_on_the_card(card: str, disk_dir: Path) -> dict:
     from repro_torch.optim import grad_compress as gc
     dp_check, train_dp = DP_CHECK, TRAIN_DP
 
-    def leaf_rel(want: dict, got: dict) -> dict:
-        out = {}
-        for path, a in _paths(want):
-            b = got
-            for k in path:
-                b = b[k]
-            a64 = np.asarray(a, np.float64)
-            out["/".join(map(str, path))] = float(
-                np.abs(a64 - b).max() / max(np.abs(a64).max(), 1e-30))
-        return out
-
-    def update_rel(w0: dict, w1: dict, g0: dict, g1: dict) -> dict:
-        """Each leaf's update from step 0 to step 1, against one device's:
-        ||(g1 - g0) - (w1 - w0)|| / ||w1 - w0||, Frobenius."""
-        out = {}
-        for (path, a0), (_, a1), (_, b0), (_, b1) in zip(
-                _paths(w0), _paths(w1), _paths(g0), _paths(g1)):
-            dw = np.asarray(a1, np.float64) - a0
-            dg = np.asarray(b1, np.float64) - b0
-            out["/".join(map(str, path))] = float(
-                np.linalg.norm(dg - dw) / max(np.linalg.norm(dw), 1e-30))
-        return out
-
-    def same_bits(a: dict, b: dict) -> bool:
-        pa, pb = _paths(a), _paths(b)
-        return len(pa) == len(pb) and all(
-            x[0] == y[0] and x[1].tobytes() == y[1].tobytes() for x, y in zip(pa, pb))
+    leaf_rel, update_rel, same_bits = _leaf_rel, _update_rel, _same_bits
 
     def readings(steps: list) -> list:
         return [{k: v for k, v in st.items() if k not in ("params", "mu", "nu")}
@@ -1590,6 +1705,570 @@ def serve_on_a_mesh(card: str, dev) -> dict:
         bad.append(f"12d: {d}")
     if bad:
         fail(f"serving on a mesh: {bad}")
+    return out
+
+
+# -- phase 13: training on a (pod, data, model) mesh, the ranks sharing the card --
+# The rank functions take the device by name ("cuda", or "cpu" to rehearse
+# the phase at smoke size on the CPU, where no kernel launches).
+
+
+def _device(device: str):
+    import torch
+    return _rank_device() if device == "cuda" else torch.device("cpu")
+
+
+class _Clock:
+    """Milliseconds between two points on the device's clock (CUDA events)
+    or, on the CPU, the host's."""
+
+    def __init__(self, dev):
+        import torch
+        self.cuda = dev.type == "cuda"
+        if self.cuda:
+            self.a, self.b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            self.a.record()
+        else:
+            self.t0 = time.perf_counter()
+
+    def ms(self) -> float:
+        if not self.cuda:
+            return (time.perf_counter() - self.t0) * 1e3
+        self.b.record()
+        self.b.synchronize()
+        return self.a.elapsed_time(self.b)
+
+
+def _tp_smoke_setup(dev, mesh, arch: str, train_kw: dict):
+    """TP_CHECK's setup of ``arch``'s smoke config in f32 on ``mesh`` (None:
+    one device) and this rank's rows of its global batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import (DataConfig, SyntheticLM, batch_to_device,
+                                  device_put_batch)
+    from repro_torch.models import Model
+    from repro_torch.train import TrainConfig, TrainSetup
+    c = TP_CHECK
+    cfg = dataclasses.replace(get_config(arch).smoke(), compute_dtype="float32",
+                              param_dtype="float32")
+    setup = TrainSetup(Model(cfg), TrainConfig(
+        peak_lr=c["peak_lr"], warmup_steps=c["warmup_steps"],
+        total_steps=c["total_steps"], egress="none", **train_kw), mesh)
+    batch = next(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=c["seq_len"], global_batch=c["global_batch"],
+        seed=c["data_seed"], n_prefix=cfg.n_prefix, d_model=cfg.d_model)).batches())
+    batch = (batch_to_device(batch, dev) if mesh is None
+             else device_put_batch(batch, mesh, setup.rules, dev))
+    return setup, batch
+
+
+def tp_smoke_steps(dev, mesh, arch: str, train_kw=None, steps=None,
+                   ckpt_dir=None) -> dict:
+    """``steps`` (default TP_CHECK's) of ``arch``'s smoke step on this rank
+    of ``mesh`` (None: one device), from the seeded state or from the
+    checkpoint in ``ckpt_dir``. Returns each step's metrics, time and whole
+    params and moments (reference layout, numpy), the whole state as
+    restored (with ``ckpt_dir``), the launches and the peak memory."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.convert import to_reference_layout
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    setup, batch = _tp_smoke_setup(dev, mesh, arch, train_kw or {})
+    restored = None
+    if ckpt_dir is None:
+        state = setup.init_state(TP_CHECK["state_seed"], dev)
+    else:
+        ckpt = CheckpointManager(ckpt_dir, layout=setup if mesh is not None else None)
+        state = ckpt.restore(setup.state_specs(), device=dev)
+        ckpt.close()
+        restored = to_reference_layout(setup.whole_state(state))
+    step = setup.step_fn()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rows = []
+    for _ in range(TP_CHECK["steps"] if steps is None else steps):
+        clock = _Clock(dev)
+        state, m, _ = step(state, batch)
+        ms = clock.ms()
+        whole = setup.whole_state(state)
+        rows.append({"step_ms": ms, **{k: float(v) for k, v in m.items()},
+                     "params": to_reference_layout(whole["params"]),
+                     "mu": to_reference_layout(whole["opt"]["mu"]),
+                     "nu": to_reference_layout(whole["opt"]["nu"])})
+    return {"steps": rows, "launches": dict(LAUNCHES), "restored": restored,
+            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                            if dev.type == "cuda" else None)}
+
+
+def tp_save(dev, mesh, arch: str, directory: str) -> dict:
+    """RESHARD's state (seeded, step 0) saved on ``mesh`` as checkpoint
+    step 1, rank 0 writing. Returns the whole state it saved."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.convert import to_reference_layout
+    setup, _ = _tp_smoke_setup(dev, mesh, arch, {})
+    state = setup.init_state(RESHARD["state_seed"], dev)
+    ckpt = CheckpointManager(directory, async_writes=False, layout=setup)
+    ckpt.save(state, 1)
+    ckpt.wait()
+    ckpt.close()
+    return to_reference_layout(setup.whole_state(state))
+
+
+def tp_rank_jobs(shape, device: str, jobs: list) -> list:
+    """Phase 13 (a), (c) and (d) on one rank of the (pod, data, model) mesh
+    of ``shape``: each job (``kind`` "steps" with ``tp_smoke_steps``'
+    keywords, or "save" with ``tp_save``'s) in order. Returns their
+    results."""
+    from repro_torch.launch.mesh import Mesh
+    dev = _device(device)
+    mesh = Mesh(shape, ("pod", "data", "model"))
+    run = {"steps": tp_smoke_steps, "save": tp_save}
+    return [run[job["kind"]](dev, mesh, **{k: v for k, v in job.items() if k != "kind"})
+            for job in jobs]
+
+
+def _tp_gates(one: dict, got: list, want_launches: dict) -> dict:
+    """(a)'s gates of a mesh run (``got``, rank by rank) against the one-
+    device run: loss and grad_norm at each step, the params and moments
+    after the first (LR 0), the second step's update of each leaf, every
+    rank's params the same bits, and the launches a rank."""
+    gates, readings = {}, {}
+    r0 = got[0]
+    for i, (w, g) in enumerate(zip(one["steps"], r0["steps"])):
+        gates[f"loss_rel_{i}"] = abs(g["loss"] - w["loss"]) / abs(w["loss"])
+        gates[f"grad_norm_rel_{i}"] = abs(g["grad_norm"] - w["grad_norm"]) / abs(w["grad_norm"])
+    w, g = one["steps"][0], r0["steps"][0]
+    gates["param_rel_0"] = max(_leaf_rel(w["params"], g["params"]).values())
+    gates["moment_rel_0"] = max(max(_leaf_rel(w[m], g[m]).values()) for m in ("mu", "nu"))
+    if len(one["steps"]) > 1:
+        upd = _update_rel(one["steps"][0]["params"], one["steps"][1]["params"],
+                          r0["steps"][0]["params"], r0["steps"][1]["params"])
+        worst = max(upd, key=upd.get)
+        gates["update_rel_1"] = upd[worst]
+        readings["update_rel_1_leaf"] = worst
+    equal = all(_same_bits(s["params"], t["params"])
+                for r in got[1:] for s, t in zip(r["steps"], r0["steps"]))
+    ok = (all(v < TP_LOSS_REL for k, v in gates.items() if k.startswith("loss"))
+          and all(v < TP_GNORM_REL for k, v in gates.items() if k.startswith("grad"))
+          and gates["param_rel_0"] < TP_PARAM_REL and gates["moment_rel_0"] < TP_MOMENT_REL
+          and gates.get("update_rel_1", 0.0) < TP_UPDATE_REL and equal
+          and all(r["launches"] == want_launches for r in got))
+    return {"ok": ok, "gates": gates, "readings": readings,
+            "ranks_params_bit_equal": equal, "launches": [r["launches"] for r in got],
+            "want_launches": want_launches,
+            "step_ms": [[s["step_ms"] for s in r["steps"]] for r in got],
+            "peak_mem_gb": [r["peak_mem_gb"] for r in got]}
+
+
+def mamba_grads_through_the_kernel(dev) -> dict:
+    """(c): falcon-mamba smoke's gradients at TP_CHECK's seeded state and
+    batch on one device, through the scan kernel (under ``SelectiveScan``
+    on the card) and through the plain scan. Returns each leaf's max |g -
+    g_plain| / max |g_plain|, whether every leaf's bits are equal, and the
+    kernel's launches in the kernel run. Raises where the kernel path gives
+    a leaf no gradient (a scan without a backward)."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.layers import tree_leaves
+    setup, batch = _tp_smoke_setup(dev, None, "falcon-mamba-7b", {})
+    params = setup.init_state(TP_CHECK["state_seed"], dev)["params"]
+    reset_launches()
+    g_kernel = tree_leaves(setup._value_and_grad(params, batch)[2])
+    launches = dict(LAUNCHES)
+    with swapped(ssm_mod, "selective_scan", ssm_scan_ref):
+        g_plain = tree_leaves(setup._value_and_grad(params, batch)[2])
+    rel = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+           for a, b in zip(g_kernel, g_plain)]
+    return {"max_rel": max(rel), "bit_equal": all(torch.equal(a, b) for a, b in
+                                                  zip(g_kernel, g_plain)),
+            "launches": launches, "n_leaves": len(rel)}
+
+
+def tp_full_width(shape, device: str, cell: dict, ref_dir: str) -> dict:
+    """(b) on one rank of the (pod, data, model) mesh of ``shape``, or with
+    ``shape`` None on one device: ``cell`` (TRAIN_TP) at the same global
+    batch, ``remat="full"``, ``grads_int8`` egress. One device runs two
+    steps and writes its params after the second to ``ref_dir``, one .npy
+    a leaf; a rank runs every step, reads those params back for its own
+    cut of each leaf after the second step, and returns the squared
+    Frobenius norms of its counted part's difference, of the reference, and
+    of the reference's move from the initial params (summed over the model
+    ranks by the caller). Each step's time (CUDA
+    events), loss, grad norm, launches and param checksums, and the
+    milliseconds spent in the ``model`` group's collectives (forward,
+    backward with the remat replays, and after the backward: the shared
+    gradients' sum, the norm, the egress sample) and in the DP all-reduce
+    are returned, with the peak memory."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM, batch_to_device, device_put_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train import TrainConfig, TrainSetup
+    from repro_torch.train import train_step as train_step_mod
+    from repro_torch.train.sharding import local_slice, take
+    dev = _device(device)
+    mesh = None if shape is None else Mesh(shape, ("pod", "data", "model"))
+    c = cell
+    cfg = dataclasses.replace(cell_config(c), remat="full")
+    n_steps = 2 if mesh is None else c["steps"]
+    setup = TrainSetup(Model(cfg), TrainConfig(
+        peak_lr=c["peak_lr"], warmup_steps=c["warmup_steps"], total_steps=c["steps"],
+        egress="grads_int8", egress_blocks=c["egress_blocks"]), mesh)
+    dp = int(np.prod(c["mesh"][:2]))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=c["seq_len"],
+                                  global_batch=dp * c["rows_per_dp"], seed=c["seed"])
+                       ).batches()
+    batches = [next(data) for _ in range(n_steps)]
+    batches = [batch_to_device(b, dev) if mesh is None
+               else device_put_batch(b, mesh, setup.rules, dev) for b in batches]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    state = setup.init_state(c["seed"], dev)
+    # the initial shard, on the host: the reference's move from it
+    p0 = ([] if mesh is None else
+          [p.to("cpu", copy=True) for p in tree_leaves(state["params"])])
+
+    spent = {"forward": 0.0, "backward": 0.0, "after": 0.0, "dp": 0.0}
+    phase = ["after"]
+    if mesh is not None:
+        group = mesh.groups["model"]
+
+        def timed(fn):
+            def run(*a, **kw):
+                _sync(dev)
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                _sync(dev)
+                spent[phase[0]] += (time.perf_counter() - t0) * 1e3
+                return out
+            return run
+
+        for name in ("all_reduce_sum", "all_gather", "gather"):
+            setattr(group, name, timed(getattr(group, name)))
+    inner_vg, inner_loss = setup._value_and_grad, Model.loss_fn
+
+    def value_and_grad(params, batch):
+        phase[0] = "backward"       # outside loss_fn: the backward, replays
+        try:
+            return inner_vg(params, batch)
+        finally:
+            phase[0] = "after"
+
+    def loss_fn(self, *a, **kw):
+        phase[0] = "forward"
+        try:
+            return inner_loss(self, *a, **kw)
+        finally:
+            phase[0] = "backward"
+
+    setup._value_and_grad = value_and_grad
+    inner_mean = train_step_mod._dp_mean
+
+    def timed_mean(grp, t):
+        if grp.size == 1 or t.numel() < 64:         # the metrics' few scalars
+            return inner_mean(grp, t)
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = inner_mean(grp, t)
+        _sync(dev)
+        spent["dp"] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    # step 1's reduced gradients, leaf by leaf: the squared norm of the
+    # part of each that this rank counts (the whole leaf on one device)
+    grad_sq = []
+    inner_update = train_step_mod.adamw_update
+
+    def recording_update(grads, *a, **kw):
+        if not grad_sq:
+            for j, g in enumerate(tree_leaves(grads)):
+                counted = setup.norm.counted[j] if setup.norm is not None else None
+                if counted is not None and any(not r for r in counted):
+                    grad_sq.append(0.0)
+                    continue
+                part = g if counted is None else take(g, counted)
+                grad_sq.append(float(part.double().square().sum()))
+        return inner_update(grads, *a, **kw)
+
+    rows, compare = [], None
+    step = setup.step_fn()
+    with swapped(Model, "loss_fn", loss_fn), swapped(train_step_mod, "_dp_mean", timed_mean), \
+            swapped(train_step_mod, "adamw_update", recording_update):
+        reset_launches()
+        for i, batch in enumerate(batches):
+            for k in spent:
+                spent[k] = 0.0
+            before = dict(LAUNCHES)
+            clock = _Clock(dev)
+            state, metrics, egress = step(state, batch)
+            ms = clock.ms()
+            rows.append({"step": i, "step_ms": ms, "loss": float(metrics["loss"]),
+                         "grad_norm": float(metrics["grad_norm"]),
+                         **{f"tp_{k}_ms" if k != "dp" else "dp_allreduce_ms": v
+                            for k, v in spent.items()},
+                         "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES},
+                         "egress": {k: list(v.shape) for k, v in egress.items()},
+                         "param_checksums": _param_checksums(state["params"])})
+            if i != 1:
+                continue
+            specs = tree_leaves(setup.param_specs)
+            leaves = tree_leaves(state["params"])
+            if mesh is None:
+                Path(ref_dir).mkdir(parents=True, exist_ok=True)
+                for j, p in enumerate(leaves):
+                    np.save(Path(ref_dir) / f"{j}.npy", p.float().cpu().numpy())
+                continue
+            compare = []
+            for j, (p, spec) in enumerate(zip(leaves, specs)):
+                ref = np.load(Path(ref_dir) / f"{j}.npy", mmap_mode="r")
+                ref = torch.from_numpy(np.ascontiguousarray(
+                    take(ref, local_slice(spec, mesh, setup.rules, cfg)))).to(dev)
+                mine, start = p.float(), p0[j].to(dev).float()
+                counted = setup.norm.counted[j]
+                if counted is not None:
+                    if any(not r for r in counted):
+                        compare.append((0.0, 0.0, 0.0))
+                        continue
+                    mine, ref, start = (take(t, counted) for t in (mine, ref, start))
+                compare.append((float((mine - ref).double().square().sum()),
+                                float(ref.double().square().sum()),
+                                float((ref - start).double().square().sum())))
+                del ref, start
+    return {"rank": 0 if mesh is None else mesh.rank,
+            "coords": None if mesh is None else mesh.coords, "steps": rows,
+            "compare": compare, "grad_sq": grad_sq,
+            "leaf_names": ["/".join(map(str, path)) for path, _ in _paths(setup.param_specs)],
+            "n_params": sum(int(np.prod(s.shape)) for s in tree_leaves(setup.param_specs)),
+            "n_local": sum(p.numel() for p in tree_leaves(state["params"])),
+            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                            if dev.type == "cuda" else None)}
+
+
+def tp_train_on_the_card(card: str, device: str = "cuda",
+                         cell: dict = None, build_dir: Path = ROOT / "build") -> dict:
+    """Phase 13: (a) the sharded step equals one device, (b) the slice at
+    full width, (c) the other layer kinds and the scan's gradients, (d) the
+    reshard twin, (e) the launcher at 2x1x2. Fails on any gate; returns the
+    readings. ``device`` "cpu" and a small ``cell`` rehearse it on the CPU
+    (no kernel launches there)."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.spawn import run_ranks
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import Model
+    from repro_torch.optim import grad_compress as gc
+    cell = cell or TRAIN_TP
+    dev = _device(device)
+    on_card = device == "cuda"
+    steps = TP_CHECK["steps"]
+
+    def smoke(arch):
+        return dataclasses.replace(get_config(arch).smoke(), compute_dtype="float32",
+                                   param_dtype="float32")
+
+    def want(arch, n_steps):
+        per = prefill_launches(smoke(arch))
+        return {k: (v * n_steps if on_card else 0) for k, v in per.items()}
+
+    def ranks(shape, jobs):
+        return run_ranks(tp_rank_jobs, int(np.prod(shape)), shape, device, jobs)
+
+    out = {"card": card}
+    t0 = time.perf_counter()
+    ck = build_dir / "tp13d-ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    # the one-device runs, in this process
+    one = {a: tp_smoke_steps(dev, None, a) for a in ("gemma2-27b", *TP_TRAIN_KINDS)}
+    fsdp = {"fsdp_experts": True}
+    # (d) first: the save at (1, 4) and the restore at (4, 1)
+    saved = ranks(RESHARD["save"], [{"kind": "save", "arch": RESHARD["arch"],
+                                     "directory": str(ck)}])
+    back_41 = ranks(RESHARD["restore"][0], [{"kind": "steps", "arch": RESHARD["arch"],
+                                             "steps": 0, "ckpt_dir": str(ck)}])
+    one["restored"] = tp_smoke_steps(dev, None, RESHARD["arch"], steps=1, ckpt_dir=str(ck))
+    # (a) and (c) at 1x2; (a), llama4 with fsdp_experts and (d)'s step at 2x2
+    at_12 = ranks(TP_CHECK["meshes"][0],
+                  [{"kind": "steps", "arch": a} for a in ("gemma2-27b", *TP_TRAIN_KINDS)])
+    at_22 = ranks(TP_CHECK["meshes"][1], [
+        {"kind": "steps", "arch": "gemma2-27b"},
+        {"kind": "steps", "arch": "llama4-maverick-400b-a17b", "train_kw": fsdp},
+        {"kind": "steps", "arch": RESHARD["arch"], "steps": 1, "ckpt_dir": str(ck)}])
+    bad = []
+    rows = {}
+    for name, got, one_run, arch in (
+            ("13a 1x2", [r[0] for r in at_12], one["gemma2-27b"], "gemma2-27b"),
+            ("13a 2x2", [r[0] for r in at_22], one["gemma2-27b"], "gemma2-27b"),
+            *((f"13c {a} 1x2", [r[1 + i] for r in at_12], one[a], a)
+              for i, a in enumerate(TP_TRAIN_KINDS)),
+            ("13c llama4 fsdp_experts 2x2", [r[1] for r in at_22],
+             one["llama4-maverick-400b-a17b"], "llama4-maverick-400b-a17b"),
+            ("13d step at 2x2 from the restored state", [r[2] for r in at_22],
+             one["restored"], RESHARD["arch"])):
+        row = _tp_gates(one_run, got, want(arch, len(one_run["steps"])))
+        rows[name] = row
+        log(f"tp {name} against one device ({arch} smoke f32, B "
+            f"{TP_CHECK['global_batch']} S {TP_CHECK['seq_len']}; {card}): "
+            f"{json.dumps(row)} (limits: loss {TP_LOSS_REL}, grad_norm {TP_GNORM_REL}, "
+            f"params and moments after step 0 {TP_PARAM_REL} and {TP_MOMENT_REL} of "
+            f"each leaf's max, step 1's update {TP_UPDATE_REL})")
+        if not row["ok"]:
+            bad.append(name)
+    out["meshes"] = rows
+    # (c) the scan's gradients through the kernel against the plain scan
+    scan = mamba_grads_through_the_kernel(dev)
+    out["scan_grads"] = scan
+    want_scan = smoke("falcon-mamba-7b").n_layers if on_card else 0
+    log(f"tp 13c falcon-mamba smoke step-1 grads through the scan kernel "
+        f"(SelectiveScan) against the plain scan ({card}): {json.dumps(scan)} "
+        f"(limit {SCAN_GRAD_REL} of each leaf's max |g|; scan launches want {want_scan})")
+    if scan["max_rel"] > SCAN_GRAD_REL or scan["launches"]["ssm_scan"] != want_scan:
+        bad.append("13c scan grads")
+    # (d) the restores, bit for bit
+    whole = saved[0][0]
+    restores = {"(4, 1)": [r[0]["restored"] for r in back_41],
+                "(2, 2)": [r[2]["restored"] for r in at_22],
+                "one device": [one["restored"]["restored"]]}
+    equal = {k: all(_same_bits(w, whole) for w in v) for k, v in restores.items()}
+    equal["saved on every rank"] = all(_same_bits(s[0], whole) for s in saved)
+    out["reshard"] = equal
+    log(f"tp 13d {RESHARD['arch']} smoke saved at (data, model) (1, 4), restored "
+        f"bit for bit: {json.dumps(equal)}")
+    if not all(equal.values()):
+        bad.append("13d restore")
+    out["small_s"] = time.perf_counter() - t0
+    if bad:
+        fail(f"tp 13a/c/d: {bad}")
+    log(f"tp 13a, 13c, 13d done in {out['small_s']:.1f} s")
+
+    # (b) the slice at full width: one device first, in a process of its own
+    t0 = time.perf_counter()
+    ref_dir = build_dir / "tp13b-one-device"
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    one_b = run_ranks(tp_full_width, 1, None, device, cell, str(ref_dir))[0]
+    mesh_shape = tuple(cell["mesh"])
+    try:
+        got = run_ranks(tp_full_width, int(np.prod(mesh_shape)), mesh_shape, device,
+                        cell, str(ref_dir))
+    except RuntimeError as e:
+        if "out of memory" not in str(e).lower() or mesh_shape == (1, 1, 2):
+            raise
+        log(f"tp 13b: mesh {mesh_shape} ran out of memory; the slice at (1, 1, 2)")
+        mesh_shape = (1, 1, 2)
+        cell = {**cell, "mesh": mesh_shape}
+        got = run_ranks(tp_full_width, 2, mesh_shape, device, cell, str(ref_dir))
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    cfg = cell_config(cell)
+    n_steps = cell["steps"]
+    want_step = [{"flash_attention": (cfg.n_layers * 2 if on_card else 0), "ssm_scan": 0,
+                  "staging_pack": int(on_card and r == 0)} for r in range(len(got))]
+    bad = []
+    s1, o1 = got[0]["steps"][0], one_b["steps"][0]
+    gates = {"loss_rel_step1": abs(s1["loss"] - o1["loss"]) / abs(o1["loss"]),
+             "grad_norm_rel_step1": abs(s1["grad_norm"] - o1["grad_norm"]) / o1["grad_norm"]}
+    dp0 = [g for g in got if g["coords"]["data"] == 0 and g["coords"]["pod"] == 0]
+    sums = np.sum([g["compare"] for g in dp0], axis=0)         # (leaves, 3)
+    gates["param_rel_step2"] = float(np.sqrt(sums[:, 0].sum() / sums[:, 1].sum()))
+    rel = np.sqrt(sums[:, 0] / np.maximum(sums[:, 1], 1e-300))
+    # step 1's gradient norm leaf by leaf against one device's: the leaves
+    # whose norms differ most
+    g_tp = np.sqrt(np.sum([g["grad_sq"] for g in dp0], axis=0))
+    g_one = np.sqrt(np.asarray(one_b["grad_sq"]))
+    g_rel = np.abs(g_tp - g_one) / np.maximum(g_one, 1e-30)
+    names = got[0]["leaf_names"]
+    readings = {"param_rel_step2_worst_leaf": [names[int(rel.argmax())], float(rel.max())],
+                "grad_norm_rel_step1_by_leaf": [
+                    [names[j], float(g_one[j]), float(g_tp[j]), float(g_rel[j])]
+                    for j in np.argsort(-g_rel)[:4]],
+                "grad_norm_step1_largest_leaves": [
+                    [names[j], float(g_one[j]), float(g_tp[j])]
+                    for j in np.argsort(-g_one)[:3]],
+                # the step's move against one device's: ||p - p_one|| /
+                # ||p_one - p_0|| over the tree (an update left out reads 1)
+                "update_rel_step2": float(np.sqrt(sums[:, 0].sum() / sums[:, 2].sum()))}
+    for r, g in enumerate(got):
+        if any(s["launches"] != want_step[r] for s in g["steps"]):
+            bad.append(f"rank {r} launches {[s['launches'] for s in g['steps']]}")
+        if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in g["steps"]):
+            bad.append(f"rank {r}: a loss or grad_norm is not finite")
+    for i in range(n_steps):
+        for m in range(mesh_shape[2]):
+            sums_m = {tuple(g["steps"][i]["param_checksums"]) for g in got
+                      if g["coords"]["model"] == m}
+            if len(sums_m) != 1:
+                bad.append(f"model rank {m}'s DP ranks differ after step {i}")
+    if got[0]["steps"][0]["egress"] != {"diag": [2], "blocks": [cell["egress_blocks"], 1024],
+                                        "scales": [cell["egress_blocks"]]}:
+        bad.append(f"egress {got[0]['steps'][0]['egress']}")
+    if not (gates["loss_rel_step1"] < TRAIN_TP_LOSS_REL
+            and gates["grad_norm_rel_step1"] < TRAIN_TP_GNORM_REL
+            and gates["param_rel_step2"] < TRAIN_TP_PARAM_REL):
+        bad.append(f"gates {gates}")
+    tokens = int(np.prod(mesh_shape[:2])) * cell["rows_per_dp"] * cell["seq_len"]
+    warm = {}
+    for r, g in enumerate(got):
+        w = g["steps"][2:] or g["steps"]
+        med = {k: float(np.median([s[k] for s in w])) for k in (
+            "step_ms", "tp_forward_ms", "tp_backward_ms", "tp_after_ms", "dp_allreduce_ms")}
+        med["tp_share"] = (med["tp_forward_ms"] + med["tp_backward_ms"]
+                           + med["tp_after_ms"]) / med["step_ms"]
+        med["dp_share"] = med["dp_allreduce_ms"] / med["step_ms"]
+        warm[r] = med
+    step_s = float(np.median([warm[r]["step_ms"] for r in warm])) / 1e3
+    full = {"config": f"{cfg.name} n_layers={cfg.n_layers} remat=full bf16 compute, "
+                      f"mesh {mesh_shape} (pod, data, model), {cell['rows_per_dp']} x "
+                      f"{cell['seq_len']} tokens a DP rank",
+            "reduced": cell["reduced"], "mesh": list(mesh_shape),
+            "n_params": got[0]["n_params"], "n_params_a_rank": [g["n_local"] for g in got],
+            "gates": gates, "readings": readings,
+            "warm_median_steps_2_3": warm, "tokens_per_s": tokens / step_s,
+            "one_device": {"step_ms": [s["step_ms"] for s in one_b["steps"]],
+                           "peak_mem_gb": one_b["peak_mem_gb"],
+                           "tokens_per_s": tokens / (one_b["steps"][-1]["step_ms"] / 1e3)},
+            "peak_mem_gb": [g["peak_mem_gb"] for g in got],
+            "ranks": [{k: v for k, v in g.items() if k != "compare"} for g in got],
+            "seconds": time.perf_counter() - t0}
+    out["full_width"] = full
+    for g in got:
+        for s in g["steps"]:
+            log(f"tp 13b rank {g['rank']} {g['coords']} step {s['step']} ({card}): "
+                f"{json.dumps(s)}")
+    log(f"tp 13b ({card}): {full['config']}; {full['n_params']} params, a rank "
+        f"{full['n_params_a_rank']}; gates {json.dumps(gates)} (limits: loss "
+        f"{TRAIN_TP_LOSS_REL}, grad_norm {TRAIN_TP_GNORM_REL}, params after step 2 "
+        f"{TRAIN_TP_PARAM_REL} Frobenius over the tree); readings "
+        f"{json.dumps(readings)}; warm (median of steps 2-3) {json.dumps(warm)}; "
+        f"{full['tokens_per_s']:.0f} tokens/s; one device {json.dumps(full['one_device'])}; "
+        f"peak memory a rank {[g['peak_mem_gb'] for g in got]} GB; {full['seconds']:.1f} s")
+    if bad:
+        fail(f"tp 13b: {bad}")
+
+    # (e) the launcher at 2x1x2 with compress_pods
+    t0 = time.perf_counter()
+    flags = TP_LAUNCHER_FLAGS + (["--device", "cpu"] if not on_card else [])
+    res = train_main(flags)
+    n = int(TP_LAUNCHER_FLAGS[TP_LAUNCHER_FLAGS.index("--steps") + 1])
+    sm = get_config("gemma2-27b").smoke()
+    want_l = [{"flash_attention": sm.n_layers * n if on_card else 0, "ssm_scan": 0,
+               "staging_pack": n * (2 + (r == 0)) if on_card else 0} for r in range(4)]
+    rows_w = gc.error_state(Model(sm).param_specs(), 2)[0]
+    want_wire = n * 2 * (2 - 1) * (rows_w // 2) * (gc.QBLOCK + 4)
+    losses = [m["loss"] for m in res["metrics"]]
+    launcher = {"seconds": time.perf_counter() - t0, "loss_first": losses[0],
+                "loss_last": losses[-1], "diag_rows": int(res["diag"].shape[0]),
+                "launches_by_rank": res["launches_by_rank"], "pod_wire": res["pod_wire"],
+                "want_pod_wire_bytes": want_wire, "restarts": res["restarts"]}
+    out["launcher"] = launcher
+    log(f"tp 13e, repro_torch.launch.train.main {' '.join(flags)} ({card}): "
+        f"{json.dumps(launcher)}; want launches {want_l}")
+    if not (losses[-1] < losses[0] and launcher["diag_rows"] == n
+            and res["launches_by_rank"] == want_l
+            and res["pod_wire"]["bytes"] == want_wire):
+        fail(f"tp 13e: {launcher}, want launches {want_l}")
     return out
 
 
@@ -2949,6 +3628,22 @@ def main() -> None:
     tp["kernel_shapes"] = tp_shapes
     log(f"serving on a mesh done in {time.perf_counter() - t12:.1f} s")
 
+    # -- 13. training on a (pod, data, model) mesh, the ranks sharing the card ---
+    gc.collect()
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    tpt = tp_train_on_the_card(card)
+    log(f"training on a mesh done in {time.perf_counter() - t13:.1f} s")
+
+    def tp_train_launches(name: str) -> dict:
+        """A kernel's launches in each phase-13 run, rank by rank."""
+        out = {k: [r[name] for r in v["launches"]] for k, v in tpt["meshes"].items()}
+        out["13b"] = [sum(st["launches"][name] for st in r["steps"])
+                      for r in tpt["full_width"]["ranks"]]
+        out["13c scan grads, one device"] = [tpt["scan_grads"]["launches"][name]]
+        out["13e"] = [r[name] for r in tpt["launcher"]["launches_by_rank"]]
+        return out
+
     def mesh_launches(name: str) -> dict:
         """A kernel's launches in each phase-12 run, rank by rank."""
         return {"12a": [r[name] for r in tp["check_4x2"]["launches"]],
@@ -2981,6 +3676,7 @@ def main() -> None:
         "launches_archs": arch_launches,
         "launches_dp": dp_launches("flash_attention"),
         "launches_mesh": mesh_launches("flash_attention"),
+        "launches_tp_train": tp_train_launches("flash_attention"),
         "tp_shapes": {k: v for k, v in tp_shapes.items() if k != "scan"},
         "shape": (f"B={Bs} S={S} Hq={g['Hq']} Hkv={g['Hkv']} D={g['D']} bf16 "
                   f"causal window=0 cap={g['cap']} (serve global layer)"),
@@ -3012,6 +3708,7 @@ def main() -> None:
         "launches": scan_launches["ssm_scan"],
         "launches_train": train_launches["ssm_scan"],
         "launches_mesh": mesh_launches("ssm_scan"),
+        "launches_tp_train": tp_train_launches("ssm_scan"),
         "tp_shape": {**tp_shapes["scan"], "shape": TP_SCAN},
         "shape": (f"B={ss['B']} S={ss['S']} di={ss['di']} N={ss['N']} xi/B/C "
                   f"bf16, dt/A/h0 f32 (every falcon-mamba-7b layer's prefill)"),
@@ -3036,6 +3733,7 @@ def main() -> None:
         "launches_transports": {k: v["launches"]["staging_pack"]
                                 for k, v in transports.items()},
         "launches_dp": dp_launches("staging_pack"),
+        "launches_tp_train": tp_train_launches("staging_pack"),
         "shape": (f"{mesh_n} f32 values ({MESH['nx']}x{MESH['ny']}x{MESH['nz']} mesh) "
                   f"as ({nb_mesh * PACK_TILE[0]}, {PACK_TILE[1]}), tile {PACK_TILE}, "
                   f"int8 out (every in-transit step with codec int8-block)"),
@@ -3054,7 +3752,7 @@ def main() -> None:
         "ms_normal_values": pack_normal_ms,
         "subnormal_share": subnormal_share,
     }], "serve": serve_stats, "intransit": intransit_stats, "train": train_stats,
-        "data_parallel": dp, "serve_mesh": tp,
+        "data_parallel": dp, "serve_mesh": tp, "train_mesh": tpt,
         "transports": {k: {m: v[m] for m in ("raw_mb_per_s", "stage_ms_median", "run_s",
                                              "launches", "codec", "replays",
                                              "resent_stripes", "fired", "seconds",

@@ -13,9 +13,9 @@ one card may hold every rank. gloo's point-to-point takes CPU tensors only,
 so the collectives below move a CUDA tensor through a pinned host buffer
 (``AxisGroup``); the time of those copies belongs to the wire.
 
-``model`` > 1 gives tensor and expert parallelism to serving
-(``train.sharding.TPContext``); training refuses it (``TP_SLICE``). A mesh
-of one rank needs no process group and runs without ``torch.distributed``.
+``model`` > 1 gives tensor and expert parallelism to serving and training
+(``train.sharding.TPContext``). A mesh of one rank needs no process group
+and runs without ``torch.distributed``.
 """
 from __future__ import annotations
 
@@ -27,12 +27,6 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
-
-TP_SLICE = ("training with model > 1 (Megatron's autograd pair around the "
-            "model all-reduce, the vocab-parallel cross-entropy, the grad norm "
-            "and ZeRO-1 over TP shards, fsdp_experts) comes with the training "
-            "tensor-parallel slice of the port; serving takes model > 1")
-
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself on the CPU; a CUDA tensor's copy in pinned host memory

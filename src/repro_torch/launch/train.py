@@ -10,13 +10,14 @@ their scales) is staged into SAVIME as the step ends, as
 ``examples/train_with_intransit.py`` stages it, and so is each checkpoint.
 
 The port of ``repro/launch/train.py``, with ``--device`` (CUDA unless the
-CPU is asked for). ``--mesh DxM`` or ``PxDxM`` with M = 1 runs one process
-a rank (``launch.spawn``, gloo groups; on CUDA every rank on a card of the
-machine, all on one when it has one), and ``main`` returns rank 0's
-results; rank 0 alone runs the in-transit sink, stages each step's egress
-and writes the checkpoints. ``--mesh single`` and ``multi`` need 256 and
-512 ranks, as the reference's do; a mesh with M > 1 exits with the
-tensor-parallel slice's name.
+CPU is asked for). ``--mesh DxM`` or ``PxDxM`` runs one process a rank
+(``launch.spawn``, gloo groups; on CUDA every rank on a card of the
+machine, all on one when it has one), with tensor and expert parallelism
+over M, and ``main`` returns rank 0's results; rank 0 alone runs the
+in-transit sink, stages each step's egress and writes the checkpoints.
+``--mesh single`` and ``multi`` need 256 and 512 ranks, as the reference's
+do; a model axis that divides neither the heads nor ``pad_heads_to``
+exits 2.
 """
 from __future__ import annotations
 
@@ -37,8 +38,7 @@ from repro_torch.configs import get_config
 from repro_torch.data import (DataConfig, SyntheticLM, batch_to_device,
                               device_put_batch)
 from repro_torch.kernels import LAUNCHES, reset_launches
-from repro_torch.launch.mesh import (TP_SLICE, build_mesh, parse_mesh,
-                                     rank_device)
+from repro_torch.launch.mesh import build_mesh, parse_mesh, rank_device
 from repro_torch.launch.spawn import run_ranks
 from repro_torch.models import Model
 from repro_torch.runtime import Supervisor, SupervisorConfig
@@ -70,8 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda raises when absent")
     ap.add_argument("--mesh", default="1x1",
-                    help="single | multi | DxM | PxDxM (debug sizes), M = 1: "
-                         "one process a rank")
+                    help="single | multi | DxM | PxDxM (debug sizes): one "
+                         "process a rank, tensor parallel over M")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -259,9 +259,14 @@ def main(argv=None) -> dict:
         shape, axes = parse_mesh(args.mesh)
     except ValueError as e:
         ap.error(str(e))
-    if dict(zip(axes, shape)).get("model", 1) > 1 and args.mesh not in (
-            "single", "multi"):
-        ap.error(f"--mesh {args.mesh}: {TP_SLICE}")
+    model_n = dict(zip(axes, shape)).get("model", 1)
+    if model_n > 1 and args.mesh not in ("single", "multi"):
+        from repro_torch.train.sharding import head_plan
+        cfg = get_config(args.arch)
+        try:
+            head_plan(cfg.smoke() if args.smoke else cfg, model_n, 0)
+        except ValueError as e:
+            ap.error(f"--mesh {args.mesh}: {e}")
     n = math.prod(shape)
     if n == 1:
         return train(args, mesh=build_mesh(args.mesh))

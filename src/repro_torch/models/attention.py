@@ -13,7 +13,10 @@ projections. Where the rank's heads do not group G' to a KV head (a KV
 head shared across a rank boundary), each head gets its KV head's copy.
 With ``pad_heads_to`` a rank's share of the padded heads may hold fewer
 real heads than another's; the pad heads are skipped, which changes no
-logit (the reference slices them off before ``wo``). Decode with a
+logit (the reference slices them off before ``wo``). In training the
+gradient of a KV head that ranks share, and of the q/k norm scales, is on
+each rank the part its own heads give: the train step sums it over the
+ranks (``train_step.TrainSetup``, ``sharding.shared_over_model``). Decode with a
 sequence-sharded cache (``tp.seq``): each ``data`` rank scores its slots
 and keeps an f32 partial (max, sum, unnormalised output); the partials are
 combined over ``data``, as GSPMD's SP all-reduces combine them.
@@ -112,6 +115,8 @@ def attention(params: dict, x: torch.Tensor, *, cfg, kind: str,
     window = cfg.attn_window if kind == "local" else 0
     theta = cfg.rope_theta if kind != "local" else min(cfg.rope_theta, 10_000.0)
 
+    if tp is not None:
+        x = tp.to_model(x)
     q, k, v = (dense(x, params[w]) for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q = q + params["bq"].to(x.dtype)

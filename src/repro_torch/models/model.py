@@ -4,7 +4,14 @@
 The loss is a sequence-chunked cross-entropy: the full (B, S, V) logits are
 never made (V is 256000 for gemma2), and each chunk's unembed is recomputed
 in the backward pass (``torch.utils.checkpoint`` around the chunk, where the
-reference puts ``jax.checkpoint``)."""
+reference puts ``jax.checkpoint``).
+
+On a mesh (``tp``) the cross-entropy is vocab-parallel: each rank's logits
+are its vocab columns, never gathered; the log-partition comes from the max
+and the sum of exponentials over ``model`` (``TPContext.logsumexp``), and
+the target's logit from the rank that holds it, summed over ``model``
+(``TPContext.reduce``). A chunk's recompute replays its collectives, on
+every rank alike."""
 from __future__ import annotations
 
 import dataclasses
@@ -87,11 +94,14 @@ class Model:
             self.cfg)
 
     # -- forward ----------------------------------------------------------
-    def loss_fn(self, params: Tree, batch: dict, xent_chunk: int = 512):
+    def loss_fn(self, params: Tree, batch: dict, xent_chunk: int = 512,
+                tp=None):
         """batch: tokens/targets/loss_mask (B,S) [+ prefix_embed (B,P,M)].
         Returns (loss, metrics): loss = nll + 1e-4 z2 + 1e-2 moe_lb +
         1e-3 moe_z, metrics {nll, z2, moe_lb, moe_z} as f32 scalars. With
-        prefix embeddings the loss is on the text positions only."""
+        prefix embeddings the loss is on the text positions only. On a mesh
+        (``tp``) ``params`` and the rows are this rank's, and the loss is
+        the same on every rank of its ``model`` group."""
         cfg = self.cfg
         prefix = batch.get("prefix_embed")
         if prefix is not None and prefix.shape[1] != cfg.n_prefix:
@@ -100,11 +110,11 @@ class Model:
             raise ValueError(f"prefix_embed holds {prefix.shape[1]} positions; "
                              f"{cfg.name} takes n_prefix={cfg.n_prefix}")
         hidden, aux, _ = tfm.apply_transformer(
-            params, batch["tokens"], cfg=cfg, prefix_embed=prefix)
+            params, batch["tokens"], cfg=cfg, prefix_embed=prefix, tp=tp)
         if cfg.n_prefix and "prefix_embed" in batch:
             hidden = hidden[:, cfg.n_prefix:]
         nll, z2 = _chunked_xent(params, hidden, batch["targets"],
-                                batch["loss_mask"], cfg, xent_chunk)
+                                batch["loss_mask"], cfg, xent_chunk, tp)
         aux = {k: torch.as_tensor(v, dtype=torch.float32, device=nll.device)
                for k, v in aux.items()}
         loss = nll + 1e-4 * z2 + 1e-2 * aux["moe_lb"] + 1e-3 * aux["moe_z"]
@@ -137,18 +147,27 @@ class Model:
 
 
 def _xent_chunk(embed_params: dict, h: torch.Tensor, t: torch.Tensor,
-                m: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+                m: torch.Tensor, cfg, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """One chunk's masked sums of nll and logz**2; the logits in f32 after
-    the softcap, as the reference computes them."""
-    lg = unembed(embed_params, h, cfg.tie_embeddings)
+    the softcap, as the reference computes them (under ``tp`` this rank's
+    vocab columns, the softcap taken on them first)."""
+    lg = unembed(embed_params, h, cfg.tie_embeddings, tp, gather=False)
     lg = softcap(lg, cfg.logit_softcap).float()
-    logz = torch.logsumexp(lg, dim=-1)                               # (B,c)
-    tgt = torch.gather(lg, -1, t.long()[..., None])[..., 0]
+    if tp is None:
+        logz = torch.logsumexp(lg, dim=-1)                           # (B,c)
+        tgt = torch.gather(lg, -1, t.long()[..., None])[..., 0]
+    else:
+        logz = tp.logsumexp(lg)
+        V = lg.shape[-1]                        # this rank's vocab columns
+        local = t.long() - tp.r * V
+        mine = (local >= 0) & (local < V)
+        tgt = torch.gather(lg, -1, torch.where(mine, local, 0)[..., None])[..., 0]
+        tgt = tp.reduce(torch.where(mine, tgt, 0.0), torch.float32)
     return ((logz - tgt) * m).sum(), (logz.square() * m).sum()
 
 
 def _chunked_xent(params: dict, hidden: torch.Tensor, targets: torch.Tensor,
-                  mask: torch.Tensor, cfg, chunk: int):
+                  mask: torch.Tensor, cfg, chunk: int, tp=None):
     """Sequence-chunked masked cross-entropy and z-loss term. hidden:
     (B,S,M); targets/mask: (B,S). S is padded to a multiple of the chunk
     (pad positions are masked out); each chunk is recomputed in backward."""
@@ -165,7 +184,7 @@ def _chunked_xent(params: dict, hidden: torch.Tensor, targets: torch.Tensor,
         sl = slice(i, i + c)
         nll_c, z2_c = torch.utils.checkpoint.checkpoint(
             _xent_chunk, params["embed"], hidden[:, sl], targets[:, sl],
-            mask[:, sl], cfg, use_reentrant=False)
+            mask[:, sl], cfg, tp, use_reentrant=False)
         nll_sum = nll_sum + nll_c
         z2_sum = z2_sum + z2_c
         m_sum = m_sum + mask[:, sl].sum()

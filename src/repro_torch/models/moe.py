@@ -1,5 +1,5 @@
 """Mixture-of-Experts with capacity-based top-k dispatch (llama4 / arctic),
-the port of ``repro/models/moe.py`` on one device.
+the port of ``repro/models/moe.py``.
 
 GShard-style grouped dispatch, as the reference computes it: tokens grouped
 by sequence (prefill, training) or into a single group (decode), routed in
@@ -17,6 +17,16 @@ slots and scatters its share in f32; the shares are summed over ``model``
 and rounded once. The shared and dense MLPs are tensor-parallel. Decode
 routes the whole batch as one group, as the reference does, so where the
 batch rows are split over DP the tokens are gathered first.
+
+In training the router and the experts take their input through
+``tp.to_model``, the gathered router logits give each rank its slice of
+their gradient, and the routing weights pass through ``tp.to_model`` once
+more: a rank's experts give the gradient of their own slots' weights alone,
+which are summed over ``model`` before the softmax, while the aux losses,
+the same on every rank, count once. With ``fsdp_experts`` (``tp.fsdp``)
+each expert weight is sharded over ``data`` on its ffn axis and gathered
+whole where the layer runs; its gradient is summed over ``data`` and cut
+back to the rank's share.
 """
 from __future__ import annotations
 
@@ -74,7 +84,10 @@ def route(router: torch.Tensor, xg: torch.Tensor, *, top_k: int,
     E, k = logits.shape[-1], top_k
     C = capacity(T, k, E, capacity_factor)
     probs = torch.softmax(logits, dim=-1)
-    top_p, top_e = torch.topk(probs, k, dim=-1)                   # (G,T,k)
+    # each rank's experts weigh their own slots alone: the weights'
+    # gradient is summed over model (the aux losses read probs, once)
+    top_p, top_e = torch.topk(probs if tp is None else tp.to_model(probs),
+                              k, dim=-1)                          # (G,T,k)
     top_w = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
 
     flat_e = top_e.reshape(G, T * k)
@@ -109,13 +122,19 @@ def moe_block(params: dict, x: torch.Tensor, *, cfg, tp=None):
         x_all = tp.gather(x, tp.dp, dim=0)
     else:
         x_all = x
+    if tp is not None:
+        x_all = tp.to_model(x_all)
     xg = x_all.reshape(1, -1, M) if S == 1 else x_all  # decode: one group
     G, T, _ = xg.shape
     plan = route(params["router"], xg, top_k=k,
                  capacity_factor=m.capacity_factor, tp=tp)
     C = plan["C"]
     # this rank's experts and their slots (all of them without tp)
-    E_local = params["wi"].shape[0]
+    wi, wo, wg = params["wi"], params["wo"], params.get("wg")
+    if tp is not None:
+        wi, wo = tp.fsdp_gather(wi, 2), tp.fsdp_gather(wo, 1)
+        wg = None if wg is None else tp.fsdp_gather(wg, 2)
+    E_local = wi.shape[0]
     e_lo = tp.r * E_local if tp is not None else 0
     mine = slice(e_lo * C, (e_lo + E_local) * C)
     token_for_slot = plan["token_for_slot"][:, mine]
@@ -123,11 +142,11 @@ def moe_block(params: dict, x: torch.Tensor, *, cfg, tp=None):
     # expert compute
     g_idx = torch.arange(G, device=x.device)[:, None]
     xe = xg[g_idx, token_for_slot].reshape(G, E_local, C, M)
-    h = torch.einsum("gecm,emf->gecf", xe, params["wi"].to(xe.dtype))
+    h = torch.einsum("gecm,emf->gecf", xe, wi.to(xe.dtype))
     a = ACTS[cfg.mlp_act](h)
-    if "wg" in params:
-        a = a * torch.einsum("gecm,emf->gecf", xe, params["wg"].to(xe.dtype))
-    ye = torch.einsum("gecf,efm->gecm", a, params["wo"].to(xe.dtype))
+    if wg is not None:
+        a = a * torch.einsum("gecm,emf->gecf", xe, wg.to(xe.dtype))
+    ye = torch.einsum("gecf,efm->gecm", a, wo.to(xe.dtype))
 
     # combine: an f32 scatter-add, dropped and empty slots carrying weight 0
     contrib = (plan["w_for_slot"][:, mine][..., None]
@@ -149,6 +168,12 @@ def moe_block(params: dict, x: torch.Tensor, *, cfg, tp=None):
 
     # aux losses
     frac_tokens = plan["onehot"].float().mean(dim=(0, 1)) * k       # (E,)
+    if S > 1 and tp is not None and tp.dp is not None:
+        # the reference's fractions are the global batch's: with the rows
+        # split over DP, each rank weighs its own mean probabilities by
+        # them, and the DP mean of its lb is the global batch's lb, its
+        # gradient each rank's share of that lb's
+        frac_tokens = tp.dp.all_reduce_sum(frac_tokens.clone()) / tp.dp.size
     mean_prob = plan["probs"].mean(dim=(0, 1))
     lb = E * (frac_tokens * mean_prob).sum() / k
     zl = torch.logsumexp(plan["logits"], dim=-1).square().mean()

@@ -14,7 +14,8 @@ two agree to f32 rounding, not bit for bit.
 Under tensor parallelism (``tp``) ``rnn`` is over ``model``: a rank holds
 its channels of ``w_x``, ``w_y``, the conv, the biases, ``lam`` and the
 state, and its blocks of the block-diagonal gates (their blocks are its
-channels); ``w_out`` is row-parallel.
+channels); ``w_out`` is row-parallel. Between the two every product is on
+the rank's own channels, so training needs no collective there.
 """
 from __future__ import annotations
 
@@ -87,6 +88,8 @@ def rglru_block(params: dict, x: torch.Tensor, *, cfg,
     cache and S == 1 one decode step, else the scan over the sequence."""
     B, S, _ = x.shape
     dr = params["lam"].shape[0]           # this rank's channels
+    if tp is not None:
+        x = tp.to_model(x)
 
     y_branch = F.gelu(dense(x, params["w_y"]), approximate="tanh")
     xb = dense(x, params["w_x"])

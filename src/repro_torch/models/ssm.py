@@ -10,7 +10,11 @@ Under tensor parallelism (``tp``) ``inner`` is over ``model``: a rank holds
 its channels of x and of z in ``in_proj``, of the conv, ``dt_proj``,
 ``A_log``, ``D`` and the state, and the scan kernel runs on them;
 ``x_proj`` and ``out_proj`` are row-parallel (dt, B and C are reduced in
-f32 before they are split).
+f32 before they are split). What ``x_proj`` gives feeds this rank's
+channels alone (``dt_proj``, the scan), so in training its gradient is
+summed over ``model`` too: its all-reduce runs in both directions. The scan
+runs through ``selective_scan``, on the card the kernel under
+``SelectiveScan``, whose backward recomputes through the plain version.
 """
 from __future__ import annotations
 
@@ -71,13 +75,18 @@ def mamba_block(params: dict, x: torch.Tensor, *, cfg,
     di, N = params["D"].shape[0], s.d_state      # this rank's channels
     R = s.resolved_dt_rank(cfg.d_model)
 
+    if tp is not None:
+        x = tp.to_model(x)
     xi, z = dense(x, params["in_proj"]).split(di, dim=-1)
     conv_carry = cache["conv"] if cache is not None else None
     xi, new_conv = _causal_conv(xi, params["conv_w"], params["conv_b"],
                                 conv_carry)
     xi = F.silu(xi)
 
-    dt_r, Bm, Cm = row_dense(xi, params["x_proj"], tp).split([R, N, N], dim=-1)
+    bcdt = row_dense(xi, params["x_proj"], tp)
+    if tp is not None:      # dt_r, B and C feed this rank's channels alone
+        bcdt = tp.to_model(bcdt)
+    dt_r, Bm, Cm = bcdt.split([R, N, N], dim=-1)
     # a compute-dtype product plus the f32 bias promotes to f32, as in JAX
     dt = F.softplus(dense(dt_r, params["dt_proj"]) + params["dt_bias"])
     A = -torch.exp(params["A_log"].float())            # (di,N), negative

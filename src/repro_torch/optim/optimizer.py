@@ -12,6 +12,16 @@ axis makes each period's moments whole on one rank (``Zero1``). The DP
 gradient reduction before it is an all-reduce (``train_step``), so the
 global norm clips by the whole reduced gradient.
 
+On a mesh with ``model`` > 1 each leaf is this rank's TP shard: ZeRO-1
+splits the shard's local shape over its DP group, and ``global_norm``
+takes a ``NormPlan``, which counts every element of the whole tree once
+(sharded leaves summed over ``model``, a replicated leaf on one rank, KV
+columns that ranks share on the first of them, and with ``fsdp_experts``
+the expert leaves summed over ``data`` too). A leaf that ``fsdp_experts``
+already shards over ``data`` keeps its moments whole for its share: the
+reference's ``moment_constraint`` asks for a second split over the DP axes
+there, which its ``try/except`` lets give way.
+
 The update runs in place on the parameters and moments: the reference
 returns new trees, and a framework that updates in place saves the copy of
 every parameter and moment (37 GB at gemma2-27b's full width with two
@@ -64,10 +74,41 @@ def adamw_init(params: Tree) -> dict:
             "count": torch.zeros((), dtype=torch.int32, device=leaf.device)}
 
 
-def global_norm(grads: Tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of sum(g**2), in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(grads)))
+@dataclasses.dataclass
+class NormPlan:
+    """How ``global_norm`` counts a sharded tree, leaf by leaf in
+    ``tree_leaves`` order: ``counted[i]`` None (the whole local leaf) or
+    the local cuts this rank counts (``train.sharding.counted_cuts``; a
+    dimension with no range counts nothing); ``split[i]`` True where the
+    leaf is cut over ``data`` (its sum runs over ``data`` as well); and
+    the ``model`` and ``data`` groups the sums run over."""
+    counted: list
+    split: list
+    model: Any
+    data: Any
+
+
+def global_norm(grads: Tree, plan: Optional[NormPlan] = None) -> torch.Tensor:
+    """sqrt of the sum over leaves of sum(g**2), in f32; with a ``plan``,
+    of the whole tree whose shards the ranks hold (the same value on every
+    rank)."""
+    leaves = tree_leaves(grads)
+    if plan is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in leaves))
+    from repro_torch.train.sharding import take
+    zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    sums = [zero, zero]                       # [replicated over data, split]
+    for g, cuts, split in zip(leaves, plan.counted, plan.split):
+        if cuts is not None:
+            if any(not ranges for ranges in cuts):
+                continue
+            g = take(g, cuts)
+        sums[split] = sums[split] + torch.sum(torch.square(g.float()))
+    total = sums[0]
+    if any(plan.split):
+        total = total + plan.data.all_reduce_sum(sums[1].clone())
+    return torch.sqrt(plan.model.all_reduce_sum(total.clone()))
 
 
 def zero1_axes(axes: tuple, shape: tuple, dp_size: int) -> Optional[int]:
@@ -93,12 +134,21 @@ class Split:
 FULL = Split("full")
 
 
-def zero1_plan(spec_tree: Tree, params: Tree, dp_size: int) -> Tree:
+def zero1_plan(spec_tree: Tree, params: Tree, dp_size: int,
+               rules: Optional[dict] = None) -> Tree:
     """A tree like ``params`` of ``Split``s, from the reference's (stacked)
-    ``spec_tree``."""
+    ``spec_tree`` (on a mesh with ``model`` > 1, its local shapes). With
+    ``rules``, a leaf they already cut over a DP axis stays whole."""
+    def taken(spec) -> bool:
+        for a in spec.axes or ():
+            rule = rules.get(a) if rules and a else None
+            if set((rule,) if isinstance(rule, str) else rule or ()) & {"pod", "data"}:
+                return True
+        return False
+
     def leaf(spec, period):
         d = zero1_axes(spec.axes, spec.shape, dp_size) if dp_size > 1 else None
-        if d is None:
+        if d is None or taken(spec):
             return FULL
         if period is None:
             return Split("dim", d)
@@ -120,9 +170,10 @@ class Zero1:
     keeps moments for and updates (``plan``, in ``tree_leaves`` order), and
     the collectives that put the shares together."""
 
-    def __init__(self, spec_tree: Tree, params: Tree, dp):
+    def __init__(self, spec_tree: Tree, params: Tree, dp,
+                 rules: Optional[dict] = None):
         self.dp = dp
-        self.plan = tree_leaves(zero1_plan(spec_tree, params, dp.size))
+        self.plan = tree_leaves(zero1_plan(spec_tree, params, dp.size, rules))
 
     def share(self, t: torch.Tensor, split: Split) -> Optional[torch.Tensor]:
         """This rank's share of a whole leaf (a view), None where another
@@ -208,16 +259,18 @@ def _adamw_leaf(g, m, v, p, decay: bool, scale, lr, bc1, bc2,
 
 @torch.no_grad()
 def adamw_update(grads: Tree, state: dict, params: Tree, lr: torch.Tensor,
-                 cfg: AdamWConfig, decay: Tree, zero1: Optional[Zero1] = None):
-    """One AdamW step: clip by the global norm, update the f32 moments,
-    correct their bias with the count starting at 1, decay where ``decay``
-    says. Updates ``params``, ``state["mu"]`` and ``state["nu"]`` in place
-    and leaves ``grads`` as they are. With ``zero1`` each rank updates its
-    share of each leaf (``grads`` whole, the moments its shares) and the
-    params are gathered. Returns (params, state, {"grad_norm",
-    "clip_scale"}), the state with the new count."""
+                 cfg: AdamWConfig, decay: Tree, zero1: Optional[Zero1] = None,
+                 norm: Optional[NormPlan] = None):
+    """One AdamW step: clip by the global norm (over the mesh's shards with
+    ``norm``), update the f32 moments, correct their bias with the count
+    starting at 1, decay where ``decay`` says. Updates ``params``,
+    ``state["mu"]`` and ``state["nu"]`` in place and leaves ``grads`` as
+    they are. With ``zero1`` each rank updates its share of each leaf
+    (``grads`` whole, the moments its shares) and the params are gathered.
+    Returns (params, state, {"grad_norm", "clip_scale"}), the state with
+    the new count."""
     count = state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, norm)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     c = count.to(torch.float32)
     bc1 = 1 - torch.tensor(cfg.b1, dtype=torch.float32, device=c.device) ** c

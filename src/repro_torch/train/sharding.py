@@ -5,11 +5,22 @@ DP over (pod, data); TP/EP over model; SP (the sequence-sharded KV cache)
 over data for long-context decode. ``make_rules`` is the reference's, rule
 for rule. Where the reference hands the rules to GSPMD, the port turns them
 into each rank's share: ``local_slice`` cuts one spec, ``shard_tree`` a
-whole tree, and ``TPContext`` carries the mesh, the rules and the head plan
-into the model, whose layers meet over ``model`` (and, in SP decode, over
-``data``) only where GSPMD would insert a collective. ``batch`` picks the
-rows of the global batch a rank takes (``shard_batch``), and ZeRO-1 splits
-the moments over DP (``optim.optimizer.zero1_plan``).
+whole tree and ``unshard`` puts a leaf back together from its shares, and
+``TPContext`` carries the mesh, the rules and the head plan into the model,
+whose layers meet over ``model`` (and, in SP decode, over ``data``) only
+where GSPMD would insert a collective. ``batch`` picks the rows of the
+global batch a rank takes (``shard_batch``), and ZeRO-1 splits the moments
+over DP (``optim.optimizer.zero1_plan``).
+
+Training differentiates the sharded program by hand, where GSPMD
+differentiates it for the reference: each collective of ``TPContext`` is an
+``autograd.Function`` with its own backward, Megatron's pair around the
+model all-reduce (``to_model``: identity forward, all-reduce backward, on
+the input of the column-parallel products; ``reduce``: all-reduce forward,
+identity backward, on the row-parallel sums), a gather whose backward takes
+this rank's slice, the vocab-parallel log-partition of the cross-entropy,
+and for ``fsdp_experts`` an all-gather over ``data`` whose backward sums the
+gradients over ``data`` and keeps this rank's slice.
 
 An axis is cut by what it means where that differs from a contiguous cut of
 the stored axis: the flat ``qkv`` and ``kv_flat`` projections on whole heads
@@ -19,6 +30,7 @@ side by side (mamba's ``in_proj``, [x | z]) block by block.
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Any, Optional
 
 import numpy as np
@@ -236,9 +248,129 @@ def shard_tree(tree, spec_tree, mesh, rules: dict, cfg=None):
     def walk(spec, x):
         if isinstance(x, dict):
             return {k: walk(spec[k], x[k]) for k in x}
+        if isinstance(x, list):       # a scan entry's periods, in the port's layout
+            return [walk(s, xx) for s, xx in zip(spec, x)]
         return cut(spec, x)
 
     return walk(spec_tree, tree)
+
+
+def _at(mesh, axis: str, index: int):
+    """What ``local_slice`` reads of the mesh, at another coordinate on
+    ``axis``."""
+    return types.SimpleNamespace(shape=mesh.shape,
+                                 coords={**mesh.coords, axis: index})
+
+
+def mesh_axes(spec, rules: dict) -> dict[str, int]:
+    """{mesh axis: the dimension of ``spec`` it cuts}."""
+    out = {}
+    for dim, a in enumerate(spec.axes or ()):
+        rule = rules.get(a) if a else None
+        for m in ((rule,) if isinstance(rule, str) else tuple(rule or ())):
+            out[m] = dim
+    return out
+
+
+def peer_cuts(spec, mesh, rules: dict, cfg, axis: str) -> list:
+    """The cuts of ``spec`` of every rank along ``axis`` that shares this
+    rank's other coordinates, in axis order."""
+    return [local_slice(spec, _at(mesh, axis, i), rules, cfg)
+            for i in range(mesh.shape[axis])]
+
+
+def _place(out: torch.Tensor, part: torch.Tensor, ranges: list, dim: int) -> None:
+    off = 0
+    for a, b in ranges:
+        out.narrow(dim, a, b - a).copy_(part.narrow(dim, off, b - a))
+        off += b - a
+
+
+def unshard(t: torch.Tensor, spec, mesh, rules: dict, cfg=None,
+            axes: Optional[tuple] = None, dst: Optional[int] = None):
+    """The leaf ``spec`` whole again from every rank's share ``t``, one mesh
+    axis after the other (those of ``axes``, default every axis that cuts
+    it): each rank's share placed by its cuts (``local_slice``), KV columns
+    that ranks share written by each with the same bits. Collective over
+    each axis's group; with ``dst`` the whole reaches the group's ``dst``-th
+    rank alone and every other rank gets None (and takes part in no later
+    axis: the next group's ranks all sit at ``dst`` of this one)."""
+    for axis, dim in mesh_axes(spec, rules).items():
+        group = mesh.groups[axis]
+        if (axes is not None and axis not in axes) or group.size == 1:
+            continue
+        cuts = [c[dim] for c in peer_cuts(spec, mesh, rules, cfg, axis)]
+        widths = [sum(b - a for a, b in c) for c in cuts]
+        wide = max(widths)      # shares of unequal width (shared or padded
+        if t.shape[dim] < wide:  # heads) travel padded to the widest
+            pad = list(t.shape)
+            pad[dim] = wide - t.shape[dim]
+            t = torch.cat([t, t.new_zeros(pad)], dim)
+        parts = (group.all_gather(t.contiguous()) if dst is None
+                 else group.gather(t.contiguous(), dst))
+        if parts is None:
+            return None
+        shape = list(t.shape)
+        shape[dim] = spec.shape[dim]
+        out = t.new_zeros(shape)
+        for part, c, w in zip(parts, cuts, widths):
+            _place(out, part.narrow(dim, 0, w), c, dim)
+        t = out
+    return t
+
+
+def counted_cuts(spec, mesh, rules: dict, cfg=None) -> Optional[Cuts]:
+    """The part of this rank's share of ``spec`` that it alone counts among
+    the ranks of its ``model`` group (a sum over the group of what each
+    counts covers each element once): None for the whole share, else local
+    cuts, possibly empty. A leaf that ``model`` does not cut is counted by
+    model rank 0; KV columns that ranks share by the first of them."""
+    dim = mesh_axes(spec, rules).get("model")
+    r = mesh.coords.get("model", 0)
+    if dim is None or mesh.shape.get("model", 1) == 1:
+        return None if r == 0 else tuple([] for _ in spec.shape)
+    cuts = [c[dim] for c in peer_cuts(spec, mesh, rules, cfg, "model")]
+    taken = set()
+    for c in cuts[:r]:
+        for a, b in c:
+            taken.update(range(a, b))
+    keep, off = [], 0
+    for a, b in cuts[r]:
+        for i in range(a, b):
+            if i not in taken:
+                if keep and keep[-1][1] == off:
+                    keep[-1] = (keep[-1][0], off + 1)
+                else:
+                    keep.append((off, off + 1))
+            off += 1
+    if keep == [(0, off)]:
+        return None
+    mine = local_slice(spec, mesh, rules, cfg)
+    return tuple(keep if d == dim else [(0, cut_shape((c,))[0])]
+                 for d, c in enumerate(mine))
+
+
+def shared_over_model(spec, mesh, rules: dict, cfg=None) -> bool:
+    """Whether the ranks of a ``model`` group each hold a partial gradient
+    of this leaf, to be summed over the ranks that hold each element: q/k
+    norm scales (replicated, used on each rank's heads) and KV projections
+    whose heads ranks share (MQA, or a model axis the KV heads do not
+    divide)."""
+    if mesh.shape.get("model", 1) == 1:
+        return False
+    axes = spec.axes or ()
+    if "head_dim" in axes:
+        return True
+    if "kv_flat" not in axes:
+        return False
+    dim = axes.index("kv_flat")
+    seen = set()
+    for c in peer_cuts(spec, mesh, rules, cfg, "model"):
+        for a, b in c[dim]:
+            if seen & set(range(a, b)):
+                return True
+            seen.update(range(a, b))
+    return False
 
 
 # ---------------------------------------------------------------------------
@@ -249,12 +381,17 @@ def shard_tree(tree, spec_tree, mesh, rules: dict, cfg=None):
 class TPContext:
     """What the layers need of the mesh: the ``model`` group (TP and EP),
     this rank's heads (``head_plan``), the ``data`` group where the global
-    KV caches are sequence-sharded (``seq``, else None), and the DP group
-    where the batch rows are split (``dp``, else None), which MoE decode
-    routes over as one group, as the reference's global batch is.
+    KV caches are sequence-sharded (``seq``, else None), the DP group where
+    the batch rows are split (``dp``, else None), which MoE decode routes
+    over as one group, as the reference's global batch is, and the ``data``
+    group the expert weights are sharded over with ``fsdp_experts``
+    (``fsdp``, else None: the rules map ``expert_ffn`` onto ``data``).
 
     Partial sums travel in f32 and are rounded once to the compute dtype;
-    gathers travel in f32 and come back in the tensor's dtype."""
+    gathers travel in f32 and come back in the tensor's dtype. Under
+    autograd every collective has its backward (module docstring), and
+    every rank issues the same collectives in the same order, forward,
+    backward and the recompute of a checkpointed block alike."""
 
     def __init__(self, mesh, rules: dict, cfg):
         self.mesh, self.rules, self.cfg = mesh, rules, cfg
@@ -275,16 +412,129 @@ class TPContext:
                     else None)
         self.dp = (mesh.dp if rules.get("batch") is not None and mesh.dp.size > 1
                    else None)
+        ffn = rules.get("expert_ffn")
+        self.fsdp = (mesh.groups[ffn] if ffn and mesh.groups[ffn].size > 1
+                     else None)
+
+    def to_model(self, x: torch.Tensor) -> torch.Tensor:
+        """The input of column-parallel products: itself; under autograd its
+        gradient is summed over ``model``."""
+        if self.m == 1 or not (torch.is_grad_enabled() and x.requires_grad):
+            return x
+        return _ToModel.apply(x, self.model)
 
     def reduce(self, partial: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """The sum over ``model`` of an f32 partial, rounded once to dtype."""
-        return self.model.all_reduce_sum(partial.float()).to(dtype)
+        """The sum over ``model`` of an f32 partial, rounded once to dtype;
+        under autograd each rank's partial takes the sum's gradient."""
+        if self.m == 1:
+            return partial.to(dtype)
+        return _Reduce.apply(partial, self.model, dtype)
 
     def gather(self, t: torch.Tensor, group=None, dim: int = -1) -> torch.Tensor:
         """Every rank's ``t`` of ``group`` (default ``model``) concatenated
-        along ``dim``, in group order."""
+        along ``dim``, in group order; under autograd each rank's ``t``
+        takes its slice of the gradient."""
         group = group or self.model
         if group.size == 1:
             return t
-        wire = t if t.dtype in (torch.float32, torch.int32, torch.int64) else t.float()
-        return torch.cat(group.all_gather(wire.contiguous()), dim=dim).to(t.dtype)
+        return _Gather.apply(t, group, dim)
+
+    def fsdp_gather(self, w: torch.Tensor, dim: int) -> torch.Tensor:
+        """An expert weight whole along ``dim`` (``expert_ffn``) from its
+        shares over ``data`` with ``fsdp_experts``; its gradient summed over
+        ``data`` and cut back to this rank's share (a reduce-scatter)."""
+        if self.fsdp is None:
+            return w
+        return _GatherSum.apply(w, self.fsdp, dim)
+
+    def logsumexp(self, lg: torch.Tensor) -> torch.Tensor:
+        """log sum exp over the vocab of f32 logits whose last axis is this
+        rank's vocab shard: the max and the sum of exponentials over
+        ``model``; under autograd the gradient of each rank's logits is its
+        columns of the softmax."""
+        if self.m == 1:
+            return torch.logsumexp(lg, dim=-1)
+        return _VocabLogZ.apply(lg, self.model)
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32, or as it is where it is wider (f64, integers)."""
+    return t if t.dtype in (torch.float64, torch.int32, torch.int64) else t.float()
+
+
+def _sum_f32(group, t: torch.Tensor) -> torch.Tensor:
+    """A new tensor: ``t``'s sum over ``group``, taken in f32 (or wider) and
+    rounded once to ``t``'s dtype."""
+    buf = _wide(t.detach())
+    if buf.data_ptr() == t.data_ptr():
+        buf = buf.clone()
+    return group.all_reduce_sum(buf.contiguous()).to(t.dtype)
+
+
+def _gather_f32(group, t: torch.Tensor, dim: int) -> torch.Tensor:
+    return torch.cat(group.all_gather(_wide(t).contiguous()), dim=dim).to(t.dtype)
+
+
+class _ToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(ctx.group, g), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, partial, group, dtype):
+        ctx.in_dtype = partial.dtype
+        buf = _wide(partial.detach())
+        if ctx.needs_input_grad[0] and buf.data_ptr() == partial.data_ptr():
+            buf = buf.clone()      # a partial autograd may still read
+        return group.all_reduce_sum(buf.contiguous()).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.in_dtype), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.dim, ctx.index, ctx.size = dim, group.index, t.shape[dim]
+        return _gather_f32(group, t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None
+
+
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim, ctx.size = group, dim, t.shape[dim]
+        return _gather_f32(group, t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # gloo has no reduce-scatter: the sum whole, then this rank's slice
+        total = _sum_f32(ctx.group, g)
+        return (total.narrow(ctx.dim, ctx.group.index * ctx.size, ctx.size)
+                .contiguous(), None, None)
+
+
+class _VocabLogZ(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lg, group):
+        mx = torch.stack(group.all_gather(lg.amax(-1).contiguous())).amax(0)
+        se = torch.exp(lg - mx[..., None]).sum(-1)
+        logz = mx + torch.log(group.all_reduce_sum(se.contiguous()))
+        ctx.save_for_backward(lg, logz)
+        return logz
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, logz = ctx.saved_tensors
+        return g[..., None] * torch.exp(lg - logz[..., None]), None

@@ -71,7 +71,8 @@ def train_steps(shape, axes, cfg_kw, train_kw, n_steps=2, seed=7):
     seeded state, on this rank's rows of the global batch. Returns each
     step's metrics and params and whole moments (gathered; the last step's
     also at the top level), this rank's moment shares' shapes, and with
-    compress_pods the reduce's input and output at each step."""
+    compress_pods the reduce's input and output at each step, and each
+    step's egress (rank 0's)."""
     cfg = smoke_config(**cfg_kw)
     mesh = Mesh(shape, axes)
     setup = TrainSetup(Model(cfg), TrainConfig(**{**STEP_CFG, **train_kw}), mesh)
@@ -90,14 +91,16 @@ def train_steps(shape, axes, cfg_kw, train_kw, n_steps=2, seed=7):
     train_step_mod._pod_reduce = recorded
     try:
         step = setup.step_fn()
-        metrics, snapshots = [], []
+        metrics, snapshots, egress = [], [], []
         for _ in range(n_steps):
-            state, m, _ = step(state, batch)
+            state, m, e = step(state, batch)
             metrics.append({k: float(v) for k, v in m.items()})
             snapshots.append(whole_snapshot(setup, state))
+            egress.append({k: v.numpy() for k, v in e.items()})
     finally:
         train_step_mod._pod_reduce = inner
     return {"metrics": metrics, "coords": mesh.coords, "snapshots": snapshots,
+            "egress": egress,
             **snapshots[-1],
             "share_shapes": [tuple(t.shape) for t in tree_leaves(state["opt"]["mu"])],
             "reduces": reduces}
@@ -106,7 +109,7 @@ def train_steps(shape, axes, cfg_kw, train_kw, n_steps=2, seed=7):
 def whole_snapshot(setup, state):
     """The params and whole moments (reference layout, numpy) of a state."""
     whole = setup.whole_state(state)
-    return {"params": to_reference_layout(state["params"]),
+    return {"params": to_reference_layout(whole["params"]),
             "mu": to_reference_layout(whole["opt"]["mu"]),
             "nu": to_reference_layout(whole["opt"]["nu"])}
 
@@ -242,10 +245,125 @@ def serve_jobs(shape, jobs):
 
 def train_setup_on(shape):
     """Build the (data, model) mesh of ``shape`` and a TrainSetup on it.
-    Returns the mesh's shape and what the setup raised."""
+    Returns the mesh's shape and the shapes of this rank's params."""
     mesh = Mesh(shape, ("data", "model"))
-    try:
-        TrainSetup(Model(smoke_config()), TrainConfig(egress="none"), mesh)
-    except NotImplementedError as e:
-        return mesh.shape, str(e)
-    return mesh.shape, None
+    setup = TrainSetup(Model(smoke_config()), TrainConfig(egress="none"), mesh)
+    params = setup.init_state(0, "cpu")["params"]
+    return mesh.shape, [tuple(t.shape) for t in tree_leaves(params)]
+
+
+# -- training on a (pod, data, model) mesh -------------------------------------
+
+
+def tp_jobs(shape, axes, jobs):
+    """Each job (a dict: its ``kind`` and keywords) run on this rank of one
+    mesh of ``shape`` over ``axes``, in order: one spawn for the checks of
+    a mesh. Returns each job's result."""
+    mesh = Mesh(shape, axes)
+    return [TP_JOBS[job["kind"]](mesh, **{k: v for k, v in job.items()
+                                          if k != "kind"})
+            for job in jobs]
+
+
+def _tp_steps(mesh, arch, cfg_kw, train_kw, state, batch, n_steps=2):
+    """``n_steps`` of the port's step on this rank from the whole state
+    ``state`` (the reference's, numpy) on this rank's rows of ``batch``.
+    Returns each step's metrics and whole snapshot, this rank's param and
+    moment-share shapes, and the egress rank 0 made."""
+    from repro_torch.convert import train_state_from_jax
+    cfg = smoke_config(arch, **cfg_kw)
+    setup = TrainSetup(Model(cfg), TrainConfig(**{**STEP_CFG, **train_kw}), mesh)
+    st = setup.local_state(train_state_from_jax(state, cfg, "cpu"))
+    rows = device_put_batch(batch, mesh, setup.rules, "cpu")
+    step = setup.step_fn()
+    metrics, snapshots, egress = [], [], []
+    for _ in range(n_steps):
+        st, m, e = step(st, rows)
+        metrics.append({k: float(v) for k, v in m.items()})
+        snapshots.append(whole_snapshot(setup, st))
+        egress.append({k: v.numpy() for k, v in e.items()})
+    return {"metrics": metrics, "snapshots": snapshots, "egress": egress,
+            "param_shapes": [tuple(t.shape) for t in tree_leaves(st["params"])],
+            "share_shapes": [tuple(t.shape) for t in tree_leaves(st["opt"]["mu"])]}
+
+
+def _tp_collectives(mesh, x, w1, w2, router, c, table, h, t, mask, ws):
+    """The autograd collectives of ``TPContext`` on this rank's shards of
+    whole f64 arrays, and the vocab-parallel chunk of the cross-entropy:
+    values and the gradients of this rank's inputs (numpy)."""
+    from repro_torch.models.model import _xent_chunk
+    from repro_torch.train.sharding import TPContext, _GatherSum, make_rules
+    cfg = smoke_config()
+    tp = TPContext(mesh, make_rules(mesh, cfg), cfg)
+    m, r = tp.m, tp.r
+
+    def cols(a):
+        n = a.shape[-1] // m
+        return torch.from_numpy(a[..., r * n:(r + 1) * n].copy()).requires_grad_()
+
+    def rows(a):
+        n = a.shape[0] // m
+        return torch.from_numpy(a[r * n:(r + 1) * n].copy()).requires_grad_()
+
+    X = torch.from_numpy(x).requires_grad_()
+    W1, W2, R, T = cols(w1), rows(w2), cols(router), rows(table)
+    # column- then row-parallel: Megatron's pair
+    out = tp.reduce(torch.tanh(tp.to_model(X) @ W1) @ W2, torch.float64)
+    # router-like: the gathered logits, replicated downstream
+    probs = torch.softmax(tp.gather(tp.to_model(X) @ R), -1)
+    # an all-gather whose backward sums over the group (fsdp_experts')
+    WS = cols(ws)
+    whole_ws = _GatherSum.apply(WS, tp.model, ws.ndim - 1)
+    H = torch.from_numpy(h).requires_grad_()
+    nll, z2 = _xent_chunk({"table": T}, H, torch.from_numpy(t),
+                          torch.from_numpy(mask), cfg, tp)
+    loss = ((out * torch.from_numpy(c)).sum() + (probs * torch.from_numpy(c)).sum()
+            + (whole_ws * (r + 1)).sum() + nll + 1e-4 * z2)
+    grads = torch.autograd.grad(loss, [X, W1, W2, R, WS, T, H])
+    return {"out": out.detach().numpy(), "probs": probs.detach().numpy(),
+            "whole_ws": whole_ws.detach().numpy(), "nll": float(nll),
+            "z2": float(z2), "grads": [g.numpy() for g in grads]}
+
+
+def _tp_norm(mesh, arch, cfg_kw, train_kw, tree):
+    """``global_norm`` of this rank's shard of the whole gradient tree
+    ``tree`` (the reference's layout, numpy) under the setup's plan."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.optim.optimizer import global_norm
+    cfg = smoke_config(arch, **cfg_kw)
+    setup = TrainSetup(Model(cfg), TrainConfig(**{**STEP_CFG, **train_kw}), mesh)
+    local = params_from_jax(tree, cfg, "cpu", mesh=mesh, rules=setup.rules)
+    return float(global_norm(local, setup.norm))
+
+
+def _tp_save(mesh, arch, cfg_kw, directory):
+    cfg = smoke_config(arch, **cfg_kw)
+    setup = TrainSetup(Model(cfg), TrainConfig(**STEP_CFG), mesh)
+    state = setup.init_state(9, "cpu")
+    ckpt = CheckpointManager(directory, async_writes=False, layout=setup)
+    ckpt.save(state, 1)
+    ckpt.wait()
+    ckpt.close()
+    return to_reference_layout(setup.whole_state(state))
+
+
+def _tp_restore(mesh, arch, cfg_kw, directory, batch=None):
+    """Restore the checkpoint on this mesh: the whole state gathered back
+    from this rank's shares, and with ``batch`` the metrics and whole
+    snapshot of one step from it."""
+    cfg = smoke_config(arch, **cfg_kw)
+    setup = TrainSetup(Model(cfg), TrainConfig(**STEP_CFG), mesh)
+    ckpt = CheckpointManager(directory, layout=setup)
+    state = ckpt.restore(setup.state_specs(), device="cpu")
+    ckpt.close()
+    out = {"whole": to_reference_layout(setup.whole_state(state))}
+    if batch is not None:
+        state, m, _ = setup.step_fn()(state, device_put_batch(batch, mesh,
+                                                              setup.rules, "cpu"))
+        out["metrics"] = {k: float(v) for k, v in m.items()}
+        out["snapshot"] = whole_snapshot(setup, state)
+    return out
+
+
+TP_JOBS = {"steps": _tp_steps, "collectives": _tp_collectives, "norm": _tp_norm,
+           "save": _tp_save, "restore": _tp_restore}

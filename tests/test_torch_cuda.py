@@ -164,6 +164,53 @@ def test_scan_kernel_matches_plain(cuda_device, types, shape, h0_scale):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("types", [("float32",) * 3, ("bfloat16", "float32", "bfloat16")],
+                         ids=["f32", "mixed"])
+@pytest.mark.parametrize("chunk", [0, 7], ids=["whole", "chunked"])
+def test_scan_function_grads_equal_plain_on_the_card(cuda_device, types, chunk,
+                                                    monkeypatch):
+    """``SelectiveScan`` on the card (the kernel forward, one launch) and its
+    gradients against autograd through the plain scan on the same inputs:
+    the same bits with the whole sequence recomputed; within 1e-6 of each
+    gradient's max |g| recomputed 7 steps at a time (dA then sums its time
+    steps in another order)."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.ssm_scan import ops, ref
+    if chunk:
+        monkeypatch.setattr(ops, "recompute_chunk", lambda *a: chunk)
+    B, S, di, N = 2, 50, 130, 16
+    x_dt, dt_dt, bc_dt = (getattr(torch, t) for t in types)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+
+    def rn(*s):
+        return torch.randn(s, generator=g, device=cuda_device)
+
+    def inputs():
+        return [rn(B, S, di).to(x_dt).requires_grad_(),
+                (torch.nn.functional.softplus(rn(B, S, di)) * 0.1).to(dt_dt).requires_grad_(),
+                rn(B, S, N).to(bc_dt).requires_grad_(), rn(B, S, N).to(bc_dt).requires_grad_(),
+                (-torch.exp(rn(di, N) * 0.2)).requires_grad_(), rn(B, di, N).requires_grad_()]
+
+    ins = inputs()
+    plain = [t.detach().clone().requires_grad_() for t in ins]
+    dy = rn(B, S, di).to(x_dt)
+    dh = rn(B, di, N)
+    before = LAUNCHES["ssm_scan"]
+    y, h = ops.selective_scan(*ins)
+    assert LAUNCHES["ssm_scan"] == before + 1
+    got = torch.autograd.grad([y, h], ins, [dy, dh])
+    assert LAUNCHES["ssm_scan"] == before + 1        # the backward is plain
+    y_p, h_p = ref.ssm_scan_ref(*plain)
+    want = torch.autograd.grad([y_p, h_p], plain, [dy, dh])
+    assert torch.equal(y, y_p) and torch.equal(h, h_p)
+    for a, b in zip(got, want):
+        if chunk:
+            assert float((a.float() - b.float()).abs().max()) <= 1e-6 * float(b.float().abs().max())
+        else:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("out", [None, torch.int8, torch.bfloat16],
                          ids=["same", "int8", "bf16"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -107,14 +107,14 @@ def test_mesh_coords_and_groups_at_2x2x1():
 
 
 def test_meshes_the_port_refuses():
-    """A mesh with model > 1 builds (serving takes it), and training on it
-    raises, naming the training tensor-parallel slice; the production
-    meshes need 256 and 512 ranks, as the reference's do; a mesh must match
-    the world."""
+    """A mesh with model > 1 builds, and a TrainSetup on it too, each rank
+    holding its half of the sharded leaves (the embedding's 128 of 256
+    rows); the production meshes need 256 and 512 ranks, as the
+    reference's do; a mesh must match the world."""
     got = run_ranks(_torch_dist.train_setup_on, 2, (1, 2))
-    for shape, refused in got:
+    for shape, param_shapes in got:
         assert shape == {"data": 1, "model": 2}
-        assert "training tensor-parallel slice" in refused
+        assert (128, 64) in param_shapes and (256, 64) not in param_shapes
     for multi, n in ((False, 256), (True, 512)):
         with pytest.raises(RuntimeError, match=f"need {n} devices"):
             mesh_mod.make_production_mesh(multi_pod=multi)

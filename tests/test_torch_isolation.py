@@ -5,9 +5,9 @@ blocked; entry points refuse to run on the CPU unless asked to; the serve
 and train launchers take the reference's data-plane flags (the transports,
 striped channels, coalescing, the staging pool with tenancy, fault plans)
 and stage through each, and refuse only what the port does not take (a
-malformed mesh, train on a mesh with model > 1); the quickstart twin
-runs on the CPU; chip_smoke.py fails without a GPU and outside a
-checkout."""
+malformed mesh, a model axis that divides neither the heads nor the padded
+heads); the quickstart twin runs on the CPU; chip_smoke.py fails without a
+GPU and outside a checkout."""
 import ast
 import os
 import shutil
@@ -203,12 +203,14 @@ def test_serve_cli_checks_flags_as_the_reference(flags, why, capsys):
 
 
 @pytest.mark.parametrize("flag,why", [
-    ("--mesh=1x2", "tensor-parallel"),
-    ("--mesh=2x1x2", "tensor-parallel")])
+    ("--mesh=2x", "want DxM, PxDxM"),
+    ("--mesh=1x3", "divides neither n_heads 4 nor pad_heads_to 0")])
 def test_train_cli_rejects_multi_device_flags(flag, why, capsys):
-    """The train meshes that belong to the tensor-parallel slice: ``model``
-    > 1. Each exits with argparse's code 2 before anything runs (a DP mesh
-    and --compress-pods run: tests/test_torch_distributed.py)."""
+    """The train meshes the launcher refuses: a malformed string, and a
+    model axis that divides neither the smoke config's 4 heads nor its
+    pad_heads_to. Each exits with argparse's code 2 before anything runs
+    (DP and TP meshes and --compress-pods run:
+    tests/test_torch_distributed.py, tests/test_torch_tp_train.py)."""
     from repro_torch.launch.train import main
     with pytest.raises(SystemExit) as e:
         main(["--arch", "gemma2-27b", "--smoke", "--device", "cpu", flag])
