@@ -181,6 +181,24 @@ Phases, each of which makes the script exit non-zero when it fails:
      card, smoke steps of tens of ms); (b) ~90 s (the one-device process
      ~30 s with its 5 GB of params written out, four ranks' start and init
      ~20 s, 4 steps of ~5 s, mostly gloo); (e) ~30 s: about three minutes.
+ 14. the dry run on the card (``dryrun_on_the_card``): (a) the dry-run
+     command line (``repro_torch.launch.dryrun``, meta device, abstract
+     production mesh) for ``DRYRUN_CELLS``, in parallel subprocesses, each
+     cell's per-rank flops, model flops, useful ratio, bytes, collectives
+     by class and peak printed; (b) ``DRYRUN_CARD``: gemma3-4b at published
+     widths with 6 layers, bf16 compute on f32 params, ``remat="full"``, one
+     device, a training step of 1 x 4096 tokens and a prefill of 4 x 4096,
+     and falcon-mamba-7b at published widths with 4 layers, a prefill of
+     4 x 4096, each counted once on meta and once on the card under the
+     same ``launch.op_analysis`` counter (the kernels launched, their
+     formulas counted at the launch), in a process of its own so that the
+     card's peak is the step's; then a warm run of each without the
+     counter: its ms, TFLOP/s of model flops and the share of the card's
+     bf16 peak (989 TFLOP/s); (c) the same gemma3-4b cell's training step
+     at ``--mesh 1x2`` (two ranks on the card, gloo) under remat "full",
+     "dots" and "comm" and "full" with ``lowp_collectives``: each rank's
+     real collective record against the dry run's at 1x2, each variant's
+     loss, grad norm, peak memory and warm step ms.
 
 The pack kernel is checked in phase 3 too, byte for byte against its plain
 version (reference cases, the codec's ragged sizes, exact ties, the full
@@ -273,6 +291,30 @@ Phase 13's gates, set before its first run on the card:
   rank's pod wire bytes 2 (n-1)/n R (QBLOCK + 4) a step, R the whole
   tree's rows (the reference's flat is the whole tree's).
 
+Phase 14's gates, set before its first run on the card:
+- (a) every cell's status ``ok`` and its ``model_flops`` equal to
+  ``flops_per_step`` of its config and shape;
+- (b) on meta and on the card: ``flops`` (the kernels' formulas included)
+  and ``argument_bytes`` equal; ``vpu_flops``, ``hbm_bytes`` and the op
+  count equal, or every op whose count differs is printed (PERF.md names
+  and explains each), and no matmul-family op differs; the dry run's
+  ``peak_bytes`` within ``DRYRUN_PEAK_REL`` (10%) of
+  ``torch.cuda.max_memory_allocated`` over the step, the arguments
+  included; launches exact: the flash kernel 6 a gemma3 prefill and 12 a
+  training step (forward and remat recompute; the backward recomputes
+  through the plain version), the scan 4 a falcon-mamba prefill; finite
+  outputs;
+- (c) each rank's record equal to the dry run's at 1x2 on that rank,
+  class by class, in bytes, counts and dtypes; "comm" issues exactly
+  2 x 6 = 12 all-reduces fewer than "full" (the attention and MLP output
+  sums of each recomputed layer, which the post norms make the recompute
+  reach), 12 x 1 x 4096 x 2560 x 4 bytes fewer; under ``lowp`` the bf16
+  all-reduce bytes are half the f32 bytes they replace; "dots" and
+  "comm" give "full"'s loss and grad norm within ``DRYRUN_REMAT_REL``
+  (1e-6 relative; whether the bits are equal is printed), ``lowp`` within
+  1e-3 (loss) and 1e-2 (grad norm) of the f32 wire's; the flash kernel 12
+  a rank a step.
+
 The last lines are a JSON summary of the kernels, the card line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
 """
@@ -283,6 +325,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
 import runpy
 import subprocess
@@ -517,6 +560,25 @@ TP_LAUNCHER_FLAGS = ["--arch", "gemma2-27b", "--smoke", "--mesh", "2x1x2",
                      "--steps", "20"]
 
 
+# -- phase 14: the dry run on the card ----------------------------------------
+# (a) cells of the dry-run command line: (arch, shape, mesh, --opts)
+DRYRUN_CELLS = (("gemma3-4b", "train_4k", "single", ""),
+                ("llama4-maverick-400b-a17b", "prefill_32k", "single", ""),
+                ("qwen2-72b", "decode_32k", "single", ""),
+                ("recurrentgemma-9b", "long_500k", "single", ""),
+                ("falcon-mamba-7b", "train_4k", "multi", "comm_remat,lowp"))
+# (b), (c) gemma3-4b at published widths, 6 layers (phases 11-13's cell),
+# bf16 compute on f32 params, remat "full"; falcon-mamba-7b with 4 layers
+DRYRUN_CARD = dict(arch="gemma3-4b", n_layers=6, train=(1, 4096),
+                   prefill=(4, 4096), mamba="falcon-mamba-7b", mamba_layers=4,
+                   mesh=(1, 2), variants=(("full", False), ("dots", False),
+                                          ("comm", False), ("full", True)))
+DRYRUN_PEAK_REL = 0.10     # |dry-run peak - max_memory_allocated| / the latter
+DRYRUN_REMAT_REL = 1e-6    # dots / comm against full: loss, grad norm
+DRYRUN_LOWP_LOSS_REL = 1e-3
+DRYRUN_LOWP_GNORM_REL = 1e-2
+
+
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
@@ -554,23 +616,15 @@ def prefill_launches(cfg) -> dict:
             "ssm_scan": sum(k == "mamba" for k in kinds), "staging_pack": 0}
 
 
-def visible_keys(S: int, causal: bool, window: int, prefix: int = 0) -> int:
-    """Sum over query rows of the keys the mask lets each row see (Sq = Sk);
-    a prefix (never with a window) lets every row see keys < prefix."""
-    q = np.arange(S, dtype=np.int64)
-    hi = np.minimum(S, np.maximum(q + 1, prefix)) if causal else np.full(S, S)
-    lo = np.maximum(0, q - window + 1) if window else np.zeros(S, np.int64)
-    return int(np.sum(hi - lo))
-
-
 def attention_bound_ms(B, S, Hq, Hkv, D, causal, window, dtype,
                        prefix=0) -> tuple[float, str]:
     """Least time for one call: bytes (q, k, v read once, o written once) over
-    HBM rate against 4*B*Hq*D*sum|visible k| operations over the dtype's peak."""
-    esize = 4 if dtype == "float32" else 2
-    nbytes = B * S * (2 * Hq + 2 * Hkv) * D * esize
-    flops = 4 * B * Hq * D * visible_keys(S, causal, window, prefix)
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    HBM rate against 4*B*Hq*D*sum|visible k| operations over the dtype's peak
+    (the kernel's own count, ``flash_attention/cost.py``)."""
+    from repro_torch.kernels.flash_attention.cost import flash_cost
+    cost = flash_cost(B, S, S, Hq, Hkv, D, 4 if dtype == "float32" else 2,
+                      causal, window, prefix)
+    t_bytes, t_ops = cost["bytes"] / PEAK_BYTES, cost["flops"] / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -579,13 +633,11 @@ def scan_bound_ms(inputs, outputs) -> tuple[float, str, dict]:
     every output written once over the HBM rate, against the operations:
     B*S*di*N exponentials over the SFU rate, and the fp32 arithmetic around
     them (dt*A, decay*h, dx*B_t, h*C_t: 6 flops per state update, plus
-    dt*x per channel) over the fp32 peak. The larger of the three."""
-    xi, A = inputs[0], inputs[4]
-    B, S, di = xi.shape
-    N = A.shape[1]
-    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
-    exps = B * S * di * N
-    flops = B * S * di * (6 * N + 1)
+    dt*x per channel) over the fp32 peak (the kernel's own count,
+    ``ssm_scan/cost.py``). The larger of the three."""
+    from repro_torch.kernels.ssm_scan.cost import scan_cost
+    cost = scan_cost(inputs, outputs)
+    nbytes, exps, flops = cost["bytes"], cost["exps"], cost["flops"]
     times = {"bytes": nbytes / PEAK_BYTES, "exps": exps / PEAK_EXPS,
              "flops": flops / PEAK_FLOPS["float32"]}
     worst = max(times, key=times.get)
@@ -606,9 +658,11 @@ def pack_bound_ms(x, q, s) -> tuple[float, str, dict]:
     """Least time for one quantizing pack: x read once, the int8 blocks and
     the scales written once, over the HBM rate, against about 8 fp32
     operations an element (|x|, max, x/scale, round, two clamps, convert;
-    one division per block) over the fp32 peak. The larger of the two."""
-    nbytes = sum(t.numel() * t.element_size() for t in (x, q, s))
-    ops_count = 8 * x.numel()
+    one division per block) over the fp32 peak (the kernel's own count,
+    ``staging_pack/cost.py``). The larger of the two."""
+    from repro_torch.kernels.staging_pack.cost import pack_cost
+    cost = pack_cost(x, q, s)
+    nbytes, ops_count = cost["bytes"], cost["flops"]
     times = {"bytes": nbytes / PEAK_BYTES, "operations": ops_count / PEAK_FLOPS["float32"]}
     worst = max(times, key=times.get)
     detail = {"bytes": nbytes, "operations": ops_count,
@@ -1031,7 +1085,8 @@ def _dp_check_setup(dev, mesh, c: dict):
                                         global_batch=c["global_batch"],
                                         seed=c["data_seed"])).batches())
     batch = (batch_to_device(batch, dev) if mesh is None
-             else device_put_batch(batch, mesh, setup.rules, dev))
+             else device_put_batch(batch, mesh, setup.rules, dev,
+                                  setup.cfg.microbatches))
     return setup, state, batch
 
 
@@ -1151,7 +1206,8 @@ def dp_full_width(pods: int, disk_dir: str) -> dict:
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=c["seq_len"],
                                   global_batch=pods * c["rows_per_rank"], seed=c["seed"])
                        ).batches()
-    batches = [device_put_batch(next(data), mesh, setup.rules, dev)
+    batches = [device_put_batch(next(data), mesh, setup.rules, dev,
+                                setup.cfg.microbatches)
                for _ in range(c["steps"])]
     torch.cuda.reset_peak_memory_stats()
     state = setup.init_state(c["seed"], dev)
@@ -1757,7 +1813,8 @@ def _tp_smoke_setup(dev, mesh, arch: str, train_kw: dict):
         vocab_size=cfg.vocab_size, seq_len=c["seq_len"], global_batch=c["global_batch"],
         seed=c["data_seed"], n_prefix=cfg.n_prefix, d_model=cfg.d_model)).batches())
     batch = (batch_to_device(batch, dev) if mesh is None
-             else device_put_batch(batch, mesh, setup.rules, dev))
+             else device_put_batch(batch, mesh, setup.rules, dev,
+                                  setup.cfg.microbatches))
     return setup, batch
 
 
@@ -1924,7 +1981,8 @@ def tp_full_width(shape, device: str, cell: dict, ref_dir: str) -> dict:
                        ).batches()
     batches = [next(data) for _ in range(n_steps)]
     batches = [batch_to_device(b, dev) if mesh is None
-               else device_put_batch(b, mesh, setup.rules, dev) for b in batches]
+               else device_put_batch(b, mesh, setup.rules, dev,
+                                     setup.cfg.microbatches) for b in batches]
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     state = setup.init_state(c["seed"], dev)
@@ -1951,10 +2009,10 @@ def tp_full_width(shape, device: str, cell: dict, ref_dir: str) -> dict:
             setattr(group, name, timed(getattr(group, name)))
     inner_vg, inner_loss = setup._value_and_grad, Model.loss_fn
 
-    def value_and_grad(params, batch):
+    def value_and_grad(params, batch, *a):
         phase[0] = "backward"       # outside loss_fn: the backward, replays
         try:
-            return inner_vg(params, batch)
+            return inner_vg(params, batch, *a)
         finally:
             phase[0] = "after"
 
@@ -2270,6 +2328,276 @@ def tp_train_on_the_card(card: str, device: str = "cuda",
             and res["pod_wire"]["bytes"] == want_wire):
         fail(f"tp 13e: {launcher}, want launches {want_l}")
     return out
+
+
+def _dryrun_cfg(arch: str, n_layers: int, **kw):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=n_layers, **kw)
+
+
+def dryrun_cli(out_dir: Path) -> dict:
+    """Phase 14a: ``DRYRUN_CELLS`` through the dry-run command line, one
+    subprocess a cell, all at once. Returns each cell's record; fails
+    unless each is ``ok`` with ``model_flops`` equal to ``flops_per_step``."""
+    from repro_torch.configs import SHAPES, flops_per_step, get_config
+    from repro_torch.launch.dryrun import cell_path, parse_opts
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    procs = {}
+    for arch, shape, mesh, opts in DRYRUN_CELLS:
+        procs[(arch, shape, mesh, opts)] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape, "--mesh", mesh, "--opts", opts, "--quiet",
+             "--out", str(out_dir)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    out = {}
+    for (arch, shape, mesh, opts), proc in procs.items():
+        try:
+            _, err = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        name = f"{arch} {shape} {mesh}" + (f" {opts}" if opts else "")
+        if proc.returncode != 0:
+            fail(f"14a dry run {name} exited {proc.returncode}: {err[-2000:]}")
+        rec = json.loads(Path(cell_path(arch, shape, mesh, out=str(out_dir))).read_text())
+        cfg, _ = parse_opts(get_config(arch), opts)
+        want = flops_per_step(cfg, SHAPES[shape])
+        if rec["status"] != "ok" or rec["model_flops"] != want:
+            fail(f"14a {name}: status {rec['status']}, model_flops "
+                 f"{rec.get('model_flops')} against flops_per_step {want}")
+        useful = rec["model_flops"] / (rec["flops"] * rec["n_chips"])
+        log(f"14a {name}: a rank of {rec['n_chips']}: flops {rec['flops']:.4e}, "
+            f"model_flops {rec['model_flops']:.4e} (useful {useful:.3f}), "
+            f"hbm_bytes {rec['hbm_bytes']:.4e}, collectives "
+            f"{json.dumps(rec['collectives']['bytes'])} B "
+            f"{json.dumps(rec['collectives']['counts'])}, peak "
+            f"{rec['memory']['peak_bytes'] / 1e9:.2f} GB, traced in {rec['trace_s']} s")
+        out[name] = {**{k: rec[k] for k in ("flops", "vpu_flops", "hbm_bytes",
+                                             "model_flops", "n_chips", "trace_s",
+                                             "collectives", "memory", "n_ops")},
+                     "useful": useful}
+    return out
+
+
+def _counted_on_the_card(cfg, shape, dev) -> dict:
+    """One step of the cell on the card under the op counter, the card's
+    peak over the step, the launches, and a warm run's ms."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch.dryrun import build_step
+    fn, args = build_step(cfg, shape, None, device=dev, seed=0)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out, rep = op_analysis.analyze(fn, *args, device="cuda", by_op=True)
+    torch.cuda.synchronize()
+    rep["card_peak_bytes"] = torch.cuda.max_memory_allocated()
+    rep["card_before_bytes"] = before
+    rep["launches"] = dict(LAUNCHES)
+    first = out[1]["loss"] if shape.kind == "train" else out[0]
+    rep["finite"] = bool(torch.isfinite(first.float()).all())
+    del out
+    clock = _Clock(dev)
+    fn(*args)
+    rep["ms"] = clock.ms()
+    del args
+    return rep
+
+
+def dryrun_counts_rank(cases: list) -> list:
+    """Phase 14b in a process of its own: each case (arch, n_layers, kind,
+    B, S) counted on meta and on the card. Returns both counts each."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig, flops_per_step
+    from repro_torch.launch.dryrun import count_step
+    dev = _rank_device()
+    res = []
+    for arch, n_layers, kind, B, S in cases:
+        cfg = _dryrun_cfg(arch, n_layers)
+        shape = ShapeConfig(f"14b_{kind}", S, B, kind)
+        meta = count_step(cfg, shape, None, by_op=True)
+        card = _counted_on_the_card(cfg, shape, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res.append({"meta": meta, "card": card,
+                    "model_flops": flops_per_step(cfg, shape)})
+    return res
+
+
+def dryrun_mesh_rank(variants: list) -> list:
+    """Phase 14c on one rank of the 1x2 mesh: for each (remat, lowp), the
+    dry run's record on this rank's abstract mesh, then two real steps
+    (the first recorded, the second timed), the loss, grad norm, peak
+    memory and launches."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.dryrun import build_step, count_step
+    from repro_torch.launch.mesh import AbstractMesh, Mesh, record_collectives
+    from repro_torch.models.layers import lowp_collectives
+    c = DRYRUN_CARD
+    dev = _rank_device()
+    axes = ("data", "model")
+    mesh = Mesh(c["mesh"], axes)
+    shape = ShapeConfig("14c_train", c["train"][1], c["train"][0], "train")
+    out = []
+    for remat, lowp in variants:
+        cfg = _dryrun_cfg(c["arch"], c["n_layers"], remat=remat)
+        dry = count_step(cfg, shape, AbstractMesh(c["mesh"], axes, mesh.rank),
+                         lowp=lowp)
+        fn, (state, batch) = build_step(cfg, shape, mesh, device=dev, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with lowp_collectives(lowp):
+            with record_collectives() as rec:
+                state, m, _ = fn(state, batch)
+            torch.cuda.synchronize()
+            clock = _Clock(dev)
+            state, _, _ = fn(state, batch)
+            ms = clock.ms()
+        out.append({"remat": remat, "lowp": lowp, "record": rec,
+                    "dry": {"bytes": dry["collective_bytes"],
+                            "counts": dry["collective_counts"],
+                            "dtype_bytes": dry["collective_dtype_bytes"]},
+                    "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                    "loss_bits": m["loss"].float().cpu().numpy().tobytes(),
+                    "gnorm_bits": m["grad_norm"].float().cpu().numpy().tobytes(),
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "ms": ms, "launches": dict(LAUNCHES)})
+        del state, batch, fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_on_the_card(card: str, out_dir: Path) -> dict:
+    """Phase 14 (a), (b), (c); fails on any gate; returns the readings."""
+    from repro_torch.launch.spawn import run_ranks
+    c = DRYRUN_CARD
+    res = {"card": card}
+    t0 = time.perf_counter()
+    res["cli"] = dryrun_cli(out_dir)
+    log(f"14a done in {time.perf_counter() - t0:.1f} s")
+
+    # (b)
+    t1 = time.perf_counter()
+    cases = [(c["arch"], c["n_layers"], "train", *c["train"]),
+             (c["arch"], c["n_layers"], "prefill", *c["prefill"]),
+             (c["mamba"], c["mamba_layers"], "prefill", *c["prefill"])]
+    names = ["gemma3-4b train", "gemma3-4b prefill", "falcon-mamba-7b prefill"]
+    want_launches = [{"flash_attention": 2 * c["n_layers"], "ssm_scan": 0, "staging_pack": 0},
+                     {"flash_attention": c["n_layers"], "ssm_scan": 0, "staging_pack": 0},
+                     {"flash_attention": 0, "ssm_scan": c["mamba_layers"], "staging_pack": 0}]
+    got = run_ranks(dryrun_counts_rank, 1, cases)[0]
+    res["counts"] = {}
+    matmuls = {"aten.mm", "aten.addmm", "aten.bmm", "aten.baddbmm", "aten.convolution"}
+    for name, r, want in zip(names, got, want_launches):
+        meta, cardr = r["meta"], r["card"]
+        diff = {op: (meta["by_op"].get(op, 0), cardr["by_op"].get(op, 0))
+                for op in set(meta["by_op"]) | set(cardr["by_op"])
+                if meta["by_op"].get(op, 0) != cardr["by_op"].get(op, 0)}
+        peak_rel = abs(meta["peak_bytes"] - cardr["card_peak_bytes"]) / cardr["card_peak_bytes"]
+        share = r["model_flops"] / (cardr["ms"] * 1e-3 * PEAK_FLOPS["bfloat16"])
+        row = {k: (meta[k], cardr[k]) for k in ("flops", "vpu_flops", "hbm_bytes",
+                                                 "n_ops", "argument_bytes", "peak_bytes")}
+        row.update(card_peak_bytes=cardr["card_peak_bytes"],
+                   card_before_bytes=cardr["card_before_bytes"], peak_rel=peak_rel,
+                   ops_differing=diff, launches=cardr["launches"],
+                   kernels=(meta["kernels"], cardr["kernels"]), ms=cardr["ms"],
+                   model_flops=r["model_flops"],
+                   tflops=r["model_flops"] / (cardr["ms"] * 1e-3) / 1e12,
+                   bf16_peak_share=share)
+        res["counts"][name] = row
+        log(f"14b {name}: meta / card flops {meta['flops']:.6e} / {cardr['flops']:.6e}, "
+            f"vpu {meta['vpu_flops']:.6e} / {cardr['vpu_flops']:.6e}, hbm "
+            f"{meta['hbm_bytes']:.6e} / {cardr['hbm_bytes']:.6e}, ops {meta['n_ops']} / "
+            f"{cardr['n_ops']}, args {meta['argument_bytes']} / {cardr['argument_bytes']}; "
+            f"peak {meta['peak_bytes'] / 1e9:.3f} GB against max_memory_allocated "
+            f"{cardr['card_peak_bytes'] / 1e9:.3f} GB ({peak_rel:.4f}; before the step "
+            f"{cardr['card_before_bytes'] / 1e9:.3f} GB); launches {cardr['launches']}; "
+            f"ops differing {diff}")
+        log(f"14b {name} warm ({card}): {cardr['ms']:.2f} ms, "
+            f"{row['tflops']:.1f} TFLOP/s of model flops, {share:.4f} of the bf16 peak")
+        bad = []
+        if meta["flops"] != cardr["flops"] or meta["argument_bytes"] != cardr["argument_bytes"]:
+            bad.append("flops or argument_bytes differ")
+        if any(op in matmuls for op in diff):
+            bad.append("a matmul differs")
+        if peak_rel > DRYRUN_PEAK_REL:
+            bad.append(f"peak {peak_rel:.4f} off")
+        if cardr["launches"] != want:
+            bad.append(f"launches {cardr['launches']}, want {want}")
+        if not cardr["finite"]:
+            bad.append("non-finite output")
+        if bad:
+            fail(f"14b {name}: {bad}")
+    log(f"14b done in {time.perf_counter() - t1:.1f} s")
+
+    # (c)
+    t2 = time.perf_counter()
+    ranks = run_ranks(dryrun_mesh_rank, int(np.prod(c["mesh"])), list(c["variants"]))
+    res["mesh"] = {}
+    row_bytes = c["train"][0] * c["train"][1] * 2560 * 4
+    for i, (remat, lowp) in enumerate(c["variants"]):
+        name = remat + (" lowp" if lowp else "")
+        for r, rk in enumerate(ranks):
+            v = rk[i]
+            if v["record"] != v["dry"]:
+                fail(f"14c {name} rank {r}: record {v['record']} against the dry run's "
+                     f"{v['dry']}")
+            if v["launches"]["flash_attention"] != 2 * 2 * c["n_layers"]:
+                fail(f"14c {name} rank {r}: launches {v['launches']}")
+        v = ranks[0][i]
+        res["mesh"][name] = {k: [rk[i][k] for rk in ranks]
+                             for k in ("loss", "grad_norm", "peak_gb", "ms", "launches")}
+        res["mesh"][name]["record"] = v["record"]
+        log(f"14c {name} ({card}): loss {v['loss']:.7f}, grad norm {v['grad_norm']:.7f}, "
+            f"all-reduce {v['record']['counts']['all-reduce']} / "
+            f"{v['record']['bytes']['all-reduce']} B "
+            f"{json.dumps(v['record']['dtype_bytes']['all-reduce'])}, all-gather "
+            f"{v['record']['counts']['all-gather']}, peak "
+            f"{[round(rk[i]['peak_gb'], 3) for rk in ranks]} GB, warm step "
+            f"{[round(rk[i]['ms'], 1) for rk in ranks]} ms a rank")
+    full, comm = ranks[0][0], ranks[0][2]
+    saved = full["record"]["counts"]["all-reduce"] - comm["record"]["counts"]["all-reduce"]
+    saved_b = full["record"]["bytes"]["all-reduce"] - comm["record"]["bytes"]["all-reduce"]
+    if saved != 2 * c["n_layers"] or saved_b != 2 * c["n_layers"] * row_bytes:
+        fail(f"14c comm saved {saved} all-reduces ({saved_b} B), want "
+             f"{2 * c['n_layers']} ({2 * c['n_layers'] * row_bytes} B)")
+    f32, low = full["record"]["dtype_bytes"]["all-reduce"], ranks[0][3]["record"][
+        "dtype_bytes"]["all-reduce"]
+    moved = f32.get("torch.float32", 0) - low.get("torch.float32", 0)
+    if not moved or 2 * low.get("torch.bfloat16", 0) != moved:
+        fail(f"14c lowp: bf16 bytes {low} against the f32 bytes it replaced {moved}")
+    for i in (1, 2):
+        v = ranks[0][i]
+        for k in ("loss", "grad_norm"):
+            if abs(v[k] - full[k]) > DRYRUN_REMAT_REL * abs(full[k]):
+                fail(f"14c {v['remat']} {k} {v[k]} against full's {full[k]}")
+        res["mesh"][v["remat"]]["bits_equal_full"] = (
+            v["loss_bits"] == full["loss_bits"] and v["gnorm_bits"] == full["gnorm_bits"])
+    lw = ranks[0][3]
+    if (abs(lw["loss"] - full["loss"]) > DRYRUN_LOWP_LOSS_REL * abs(full["loss"])
+            or abs(lw["grad_norm"] - full["grad_norm"])
+            > DRYRUN_LOWP_GNORM_REL * abs(full["grad_norm"])):
+        fail(f"14c lowp: loss {lw['loss']} / grad norm {lw['grad_norm']} against "
+             f"{full['loss']} / {full['grad_norm']}")
+    res["comm_saved"] = {"all_reduces": saved, "bytes": saved_b}
+    res["lowp"] = {"bf16_bytes": low.get("torch.bfloat16", 0), "f32_bytes_replaced": moved,
+                   "loss_rel": abs(lw["loss"] - full["loss"]) / abs(full["loss"]),
+                   "gnorm_rel": abs(lw["grad_norm"] - full["grad_norm"]) / abs(full["grad_norm"])}
+    log(f"14c: comm saved {saved} all-reduces ({saved_b} B); lowp bf16 "
+        f"{res['lowp']['bf16_bytes']} B for {moved} f32 B, loss rel "
+        f"{res['lowp']['loss_rel']:.2e}, grad norm rel {res['lowp']['gnorm_rel']:.2e}; dots / comm "
+        f"bits equal full's: {res['mesh']['dots']['bits_equal_full']} / "
+        f"{res['mesh']['comm']['bits_equal_full']}")
+    log(f"14c done in {time.perf_counter() - t2:.1f} s")
+    return res
 
 
 def main() -> None:
@@ -3635,6 +3963,19 @@ def main() -> None:
     tpt = tp_train_on_the_card(card)
     log(f"training on a mesh done in {time.perf_counter() - t13:.1f} s")
 
+    # -- 14. the dry run on the card -------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    dry = dryrun_on_the_card(card, ROOT / "build" / "dryrun_torch")
+    log(f"the dry run on the card done in {time.perf_counter() - t14:.1f} s")
+
+    def dryrun_launches(name: str) -> dict:
+        """A kernel's launches in each phase-14 run (14c: a rank, 2 steps)."""
+        out = {f"14b {k}": v["launches"][name] for k, v in dry["counts"].items()}
+        out["14c"] = {k: [r[name] for r in v["launches"]] for k, v in dry["mesh"].items()}
+        return out
+
     def tp_train_launches(name: str) -> dict:
         """A kernel's launches in each phase-13 run, rank by rank."""
         out = {k: [r[name] for r in v["launches"]] for k, v in tpt["meshes"].items()}
@@ -3677,6 +4018,7 @@ def main() -> None:
         "launches_dp": dp_launches("flash_attention"),
         "launches_mesh": mesh_launches("flash_attention"),
         "launches_tp_train": tp_train_launches("flash_attention"),
+        "launches_dryrun": dryrun_launches("flash_attention"),
         "tp_shapes": {k: v for k, v in tp_shapes.items() if k != "scan"},
         "shape": (f"B={Bs} S={S} Hq={g['Hq']} Hkv={g['Hkv']} D={g['D']} bf16 "
                   f"causal window=0 cap={g['cap']} (serve global layer)"),
@@ -3709,6 +4051,7 @@ def main() -> None:
         "launches_train": train_launches["ssm_scan"],
         "launches_mesh": mesh_launches("ssm_scan"),
         "launches_tp_train": tp_train_launches("ssm_scan"),
+        "launches_dryrun": dryrun_launches("ssm_scan"),
         "tp_shape": {**tp_shapes["scan"], "shape": TP_SCAN},
         "shape": (f"B={ss['B']} S={ss['S']} di={ss['di']} N={ss['N']} xi/B/C "
                   f"bf16, dt/A/h0 f32 (every falcon-mamba-7b layer's prefill)"),
@@ -3734,6 +4077,7 @@ def main() -> None:
                                 for k, v in transports.items()},
         "launches_dp": dp_launches("staging_pack"),
         "launches_tp_train": tp_train_launches("staging_pack"),
+        "launches_dryrun": dryrun_launches("staging_pack"),
         "shape": (f"{mesh_n} f32 values ({MESH['nx']}x{MESH['ny']}x{MESH['nz']} mesh) "
                   f"as ({nb_mesh * PACK_TILE[0]}, {PACK_TILE[1]}), tile {PACK_TILE}, "
                   f"int8 out (every in-transit step with codec int8-block)"),
@@ -3752,7 +4096,7 @@ def main() -> None:
         "ms_normal_values": pack_normal_ms,
         "subnormal_share": subnormal_share,
     }], "serve": serve_stats, "intransit": intransit_stats, "train": train_stats,
-        "data_parallel": dp, "serve_mesh": tp, "train_mesh": tpt,
+        "data_parallel": dp, "serve_mesh": tp, "train_mesh": tpt, "dryrun": dry,
         "transports": {k: {m: v[m] for m in ("raw_mb_per_s", "stage_ms_median", "run_s",
                                              "launches", "codec", "replays",
                                              "resent_stripes", "fired", "seconds",

@@ -5,7 +5,8 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
-    ArchConfig, MoEConfig, RGLRUConfig, SSMConfig,
+    SHAPES, ArchConfig, MoEConfig, RGLRUConfig, ShapeConfig, SSMConfig,
+    flops_per_step, input_specs, shape_applicable,
 )
 
 _MODULES = {

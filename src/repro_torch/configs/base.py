@@ -1,13 +1,15 @@
 """Architecture configuration, the port of ``repro/configs/base.py``: the
 reference's ``ArchConfig`` and its sub-configs as plain frozen dataclasses,
 for every layer kind the reference has (dense, local, global, moe, mamba,
-rglru) and its prefix-LM and frontend fields.
+rglru) and its prefix-LM and frontend fields; and the dry run's input
+shapes: ``ShapeConfig``, the reference's four ``SHAPES``,
+``shape_applicable``, ``input_specs`` (meta tensors where the reference
+gives ``ShapeDtypeStruct``s: shapes and dtypes, no storage) and
+``flops_per_step`` (6ND or 2ND, the dry run's ``model_flops``).
 
 Left out: ``attn_chunk`` (the reference's XLA chunk size; the port's
 attention is the flash kernel or its plain version, neither of which takes
-a chunk) and ``ShapeConfig``, ``input_specs`` and ``flops_per_step``, which
-describe the reference's XLA dry runs and come with their torch analogue.
-``pad_heads_to`` exists only for tensor-parallel sharding: inert query
+a chunk). ``pad_heads_to`` exists only for tensor-parallel sharding: inert query
 heads, each KV group padded alike, so that ``model`` divides the heads
 (``train.sharding.head_plan``).
 """
@@ -15,6 +17,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+import torch
 
 BLOCK_KINDS = ("dense", "local", "global", "moe", "mamba", "rglru")
 ATTN_KINDS = ("dense", "local", "global", "moe")   # the kinds with attention
@@ -129,6 +133,13 @@ class ArchConfig:
             return 0
         return self.rglru.d_rnn or self.d_model
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True when the pattern holds a bounded-cost mixer (local window,
+        SSM, RG-LRU): such hybrids run ``long_500k``; pure full-attention
+        archs (full-attention MoE too) skip it, as the reference's do."""
+        return any(k in ("local", "mamba", "rglru") for k in self.layer_pattern)
+
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks), as the reference
         computes it."""
@@ -205,3 +216,68 @@ def _param_count(cfg: ArchConfig, active_only: bool) -> int:
                   + M * cfg.d_ff * glu)       # block MLP
         n += 2 * M                            # pre-norms (approx.)
     return n
+
+
+# ---------------------------------------------------------------------------
+# Shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """(applicable, reason-if-not), the reference's rule and words."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "pure full-attention arch: 500k context skipped (DESIGN.md §5)"
+    return True, ""
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict[str, torch.Tensor]:
+    """Meta tensors standing in for every model input of this (arch,
+    shape), the reference's keys, shapes and dtypes; no storage. Decode
+    takes one new token a row, its caches built separately."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    specs: dict[str, torch.Tensor] = {}
+    if shape.kind == "train":
+        specs["tokens"] = meta((B, S), torch.int32)
+        specs["targets"] = meta((B, S), torch.int32)
+        specs["loss_mask"] = meta((B, S), torch.float32)
+    elif shape.kind == "prefill":
+        specs["tokens"] = meta((B, S), torch.int32)
+    else:
+        specs["tokens"] = meta((B, 1), torch.int32)
+        specs["pos"] = meta((B,), torch.int32)
+    if cfg.n_prefix:
+        specs["prefix_embed"] = meta((B, cfg.n_prefix, cfg.d_model),
+                                     getattr(torch, cfg.compute_dtype))
+    return specs
+
+
+def flops_per_step(cfg: ArchConfig, shape: ShapeConfig) -> float:
+    """MODEL_FLOPS = 6·N·D (dense) / 6·N_active·D (MoE), D the tokens of
+    the step; train counts forward and backward (6ND), prefill and decode
+    the forward alone (2ND; decode one token a sequence)."""
+    n = cfg.active_param_count() if cfg.moe else cfg.param_count()
+    if shape.kind == "train":
+        return 6.0 * n * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return 2.0 * n * shape.global_batch * shape.seq_len
+    return 2.0 * n * shape.global_batch

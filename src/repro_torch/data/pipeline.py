@@ -87,7 +87,9 @@ def batch_to_device(batch: dict, device: str | torch.device = "cuda") -> dict:
 
 
 def device_put_batch(batch: dict, mesh, rules,
-                     device: str | torch.device = "cuda") -> dict:
+                     device: str | torch.device = "cuda",
+                     microbatches: int = 1) -> dict:
     """This rank's rows of the global numpy ``batch`` (``make_rules``'
-    ``batch`` rule) as tensors on ``device``."""
-    return batch_to_device(shard_batch(mesh, rules, batch), device)
+    ``batch`` rule; with the step's ``microbatches``, its share of each,
+    ``sharding.batch_rows``) as tensors on ``device``."""
+    return batch_to_device(shard_batch(mesh, rules, batch, microbatches), device)

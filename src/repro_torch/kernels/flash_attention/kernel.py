@@ -19,7 +19,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, note_cost
+from repro_torch.kernels.flash_attention.cost import flash_cost
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 TENSOR_CORE_HEAD_DIMS = (64, 128, 256)   # bf16 only
@@ -117,7 +118,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k/v: (B,Sk,Hkv,D). Returns (B,Sq,Hq,D) in q's dtype. Does not
     synchronise; raises if the launch is refused. Counts each launch in
     ``LAUNCHES``."""
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+    if q.device.type not in ("cuda", "meta") or k.device != q.device \
+            or v.device != q.device:
         raise ValueError(f"the CUDA kernel needs q, k, v on one CUDA device; "
                          f"got {q.device}, {k.device}, {v.device}")
     check_inputs(q, k, v, causal=causal, window=window, prefix=prefix)
@@ -125,6 +127,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _, Sk, Hkv, _ = k.shape
     o = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     if Sq == 0:
+        return o
+    cost = (flash_cost, B, Sq, Sk, Hq, Hkv, D, q.element_size(), causal,
+            window, prefix)
+    if q.device.type == "meta":          # the dry run: shapes and cost only
+        note_cost("flash_attention", *cost)
         return o
     lib = _library()
     strides = (ctypes.c_int64 * 12)(*[s for t in (q, k, v, o)
@@ -138,4 +145,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             stream)
     build.check(lib, err, "flash_attention launch")
     LAUNCHES["flash_attention"] += 1
+    note_cost("flash_attention", *cost)
     return o

@@ -14,7 +14,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, note_cost
+from repro_torch.kernels.ssm_scan.cost import scan_cost
 
 MAX_STATE = 16
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
@@ -86,7 +87,8 @@ def ssm_scan(xi: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     dtype, h_last (B,di,N) f32). Does not synchronise; raises if the launch
     is refused. Counts each launch in ``LAUNCHES``."""
     dev = xi.device
-    if dev.type != "cuda" or any(t.device != dev for t in (dt, Bm, Cm, A, h0)):
+    if dev.type not in ("cuda", "meta") or any(t.device != dev
+                                               for t in (dt, Bm, Cm, A, h0)):
         raise ValueError("the CUDA kernel needs every input on one CUDA device")
     check_inputs(xi, dt, Bm, Cm, A, h0)
     B, S, di = xi.shape
@@ -97,6 +99,10 @@ def ssm_scan(xi: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
         return xi.new_empty((B, 0, di)), h0_32.clone()
     y = torch.empty((B, S, di), dtype=xi.dtype, device=dev)
     h_last = torch.empty((B, di, N), dtype=torch.float32, device=dev)
+    cost = (scan_cost, (xi, dt, Bm, Cm, A, h0), (y, h_last))
+    if dev.type == "meta":               # the dry run: shapes and cost only
+        note_cost("ssm_scan", *cost)
+        return y, h_last
     lib = _library()
     strides = (ctypes.c_int64 * 8)(*[s for t in (xi, dt, Bm, Cm)
                                      for s in t.stride()[:2]])
@@ -109,4 +115,5 @@ def ssm_scan(xi: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
             _BF16[Bm.dtype], stream)
     build.check(lib, err, "ssm_scan launch")
     LAUNCHES["ssm_scan"] += 1
+    note_cost("ssm_scan", *cost)
     return y, h_last

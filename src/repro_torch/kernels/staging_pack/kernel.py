@@ -16,7 +16,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, note_cost
+from repro_torch.kernels.staging_pack.cost import pack_cost
 
 _IN = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3}
 _OUT = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -67,7 +68,7 @@ def pack_blocks(x: torch.Tensor, *, tile: tuple[int, int] = (256, 128),
     (n_blocks, TR*TC) out_dtype, scales (n_blocks,) f32); out_dtype int8
     quantizes. Does not synchronise; raises if the launch is refused.
     Counts each launch in ``LAUNCHES``."""
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError("the CUDA kernel needs its input on a CUDA device")
     out_dtype = out_dtype or x.dtype
     if shape is None:
@@ -82,6 +83,10 @@ def pack_blocks(x: torch.Tensor, *, tile: tuple[int, int] = (256, 128),
     scales = torch.empty((nb,), dtype=torch.float32, device=x.device)
     if nb == 0:
         return blocks, scales
+    cost = (pack_cost, x, blocks, scales)
+    if x.device.type == "meta":          # the dry run: shapes and cost only
+        note_cost("staging_pack", *cost)
+        return blocks, scales
     vec_ok = int(x.data_ptr() % (_VEC * x.element_size()) == 0)
     lib = _library()
     with torch.cuda.device(x.device):
@@ -91,4 +96,5 @@ def pack_blocks(x: torch.Tensor, *, tile: tuple[int, int] = (256, 128),
             x.numel(), _IN[x.dtype], _OUT[out_dtype], vec_ok, stream)
     build.check(lib, err, "staging_pack launch")
     LAUNCHES["staging_pack"] += 1
+    note_cost("staging_pack", *cost)
     return blocks, scales

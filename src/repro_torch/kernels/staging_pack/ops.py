@@ -29,11 +29,11 @@ def pack_flat(flat: torch.Tensor, shape: tuple[int, int],
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Pack the row-major (R, C) array whose first elements are ``flat``
     (contiguous, at most R*C of them) and whose tail is zeros."""
-    if flat.device.type == "cuda":
+    if flat.device.type in ("cuda", "meta"):   # meta: shapes, no launch
         return kernel.pack_blocks(flat, tile=tile, out_dtype=out_dtype,
                                   shape=shape)
     if flat.device.type != "cpu":
-        raise ValueError(f"staging_pack runs on cpu or cuda, not {flat.device}")
+        raise ValueError(f"staging_pack runs on cpu, cuda or meta, not {flat.device}")
     pad = shape[0] * shape[1] - flat.numel()
     x2 = torch.nn.functional.pad(flat, (0, pad)).reshape(shape)
     return ref.pack_blocks_ref(x2, tile=tile, out_dtype=out_dtype)

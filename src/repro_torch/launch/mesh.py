@@ -16,17 +16,68 @@ so the collectives below move a CUDA tensor through a pinned host buffer
 ``model`` > 1 gives tensor and expert parallelism to serving and training
 (``train.sharding.TPContext``). A mesh of one rank needs no process group
 and runs without ``torch.distributed``.
+
+``AbstractMesh`` is the dry run's mesh (``launch.dryrun``), the twin of
+the reference's ``AbstractMesh``: any shape, one rank's coordinates, no
+world. Its collectives move nothing and give tensors of the right shape.
+
+Every collective, real or abstract, is noted under the reference's HLO
+classes while ``record_collectives()`` is open: its wire bytes (the larger
+of the result and the operands, as ``hlo_analysis`` counts them) and a
+count of one. A real run's record can so be held against a dry run's.
+gloo has no reduce-scatter: ``all_reduce_sum`` and ``all_gather`` are
+``all-reduce`` and ``all-gather``, ``gather`` to one rank an
+``all-gather``, and ``send_to``, ``broadcast`` and a ring hop
+(``exchange``) a ``collective-permute``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+_RECORDS: list[dict] = []   # the open records, innermost last
+
+
+def new_record() -> dict:
+    return {"bytes": dict.fromkeys(COLLECTIVES, 0),
+            "counts": dict.fromkeys(COLLECTIVES, 0),
+            "dtype_bytes": {k: {} for k in COLLECTIVES}}
+
+
+@contextlib.contextmanager
+def record_collectives() -> Iterator[dict]:
+    """Yields a record {"bytes": {class: n}, "counts": {class: n},
+    "dtype_bytes": {class: {dtype: n}}} that every collective of this
+    process adds to until the block ends."""
+    rec = new_record()
+    _RECORDS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDS.remove(rec)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _note(kind: str, result: int, operands: int, t: torch.Tensor) -> None:
+    wire = max(result, operands)
+    for rec in _RECORDS:
+        rec["bytes"][kind] += wire
+        rec["counts"][kind] += 1
+        by = rec["dtype_bytes"][kind]
+        by[str(t.dtype)] = by.get(str(t.dtype), 0) + wire
+
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself on the CPU; a CUDA tensor's copy in pinned host memory
@@ -60,6 +111,7 @@ class AxisGroup:
         the same bits: gloo's ring reduces each chunk once)."""
         if self.size == 1:
             return t
+        _note("all-reduce", _nbytes(t), _nbytes(t), t)
         host = _to_host(t)
         dist.all_reduce(host, group=self.group)
         if host is not t:
@@ -71,6 +123,7 @@ class AxisGroup:
         ``t``'s device."""
         if self.size == 1:
             return [t]
+        _note("all-gather", self.size * _nbytes(t), _nbytes(t), t)
         host = _to_host(t)
         outs = [torch.empty_like(host) for _ in range(self.size)]
         dist.all_gather(outs, host, group=self.group)
@@ -81,6 +134,7 @@ class AxisGroup:
         ``t``'s device on the group's ``dst``-th rank; None on the others."""
         if self.size == 1:
             return [t]
+        _note("all-gather", self.size * _nbytes(t), _nbytes(t), t)
         host = _to_host(t)
         outs = ([torch.empty_like(host) for _ in range(self.size)]
                 if self.index == dst else None)
@@ -92,6 +146,7 @@ class AxisGroup:
         ``src``-th rank's ``t``. Only those two ranks take part."""
         if src == dst or self.index not in (src, dst):
             return t
+        _note("collective-permute", _nbytes(t), _nbytes(t), t)
         host = _to_host(t)
         if self.index == src:
             dist.send(host, self.ranks[dst], group=self.group)
@@ -105,6 +160,7 @@ class AxisGroup:
         """In place: ``t`` becomes the group's ``src``-th rank's ``t``."""
         if self.size == 1:
             return t
+        _note("collective-permute", _nbytes(t), _nbytes(t), t)
         host = _to_host(t)
         dist.broadcast(host, self.ranks[src], group=self.group)
         if host is not t:
@@ -116,6 +172,7 @@ class AxisGroup:
         """Send ``send`` (a CPU tensor) to the group's ``to``-th rank while
         receiving ``recv`` (CPU, filled in place) from its ``frm``-th: one
         hop of a ring."""
+        _note("collective-permute", _nbytes(recv), _nbytes(send), send)
         ops = [dist.P2POp(dist.isend, send, self.ranks[to], self.group),
                dist.P2POp(dist.irecv, recv, self.ranks[frm], self.group)]
         for work in dist.batch_isend_irecv(ops):
@@ -142,7 +199,10 @@ class Mesh:
                                f"has {world}")
         self.size = n
         self.rank = dist.get_rank() if dist.is_initialized() else 0
-        grid = np.arange(n).reshape(tuple(self.shape.values()))
+        self._build_groups()
+
+    def _build_groups(self) -> None:
+        grid = np.arange(self.size).reshape(tuple(self.shape.values()))
         self.coords = dict(zip(self.axis_names,
                                (int(c) for c in np.unravel_index(self.rank, grid.shape))))
         self.groups = {a: self._group(grid, (a,)) for a in self.axis_names}
@@ -158,11 +218,16 @@ class Mesh:
         mine = None
         for line in lines:
             ranks = [int(r) for r in line]
-            group = (dist.new_group(ranks, backend="gloo")
-                     if len(ranks) > 1 and dist.is_initialized() else None)
+            group = self._new_group(ranks)
             if self.rank in ranks:
-                mine = AxisGroup(ranks, ranks.index(self.rank), group)
+                mine = self._axis_group(ranks, ranks.index(self.rank), group)
         return mine
+
+    def _new_group(self, ranks: list[int]) -> Optional[dist.ProcessGroup]:
+        return (dist.new_group(ranks, backend="gloo")
+                if len(ranks) > 1 and dist.is_initialized() else None)
+
+    _axis_group = AxisGroup
 
     def barrier(self) -> None:
         if self.size > 1:
@@ -170,6 +235,79 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank {self.rank} at {self.coords})"
+
+
+class AbstractAxisGroup(AxisGroup):
+    """An ``AxisGroup`` of an ``AbstractMesh``: the same ``ranks``,
+    ``index`` and ``size``; each collective is noted as the real one is and
+    moves nothing (an all-gather's other parts are uninitialised tensors of
+    the right shape)."""
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        if self.size > 1:
+            _note("all-reduce", _nbytes(t), _nbytes(t), t)
+        return t
+
+    def all_gather(self, t: torch.Tensor) -> list[torch.Tensor]:
+        if self.size == 1:
+            return [t]
+        _note("all-gather", self.size * _nbytes(t), _nbytes(t), t)
+        return [t if i == self.index else torch.empty_like(t)
+                for i in range(self.size)]
+
+    def gather(self, t: torch.Tensor, dst: int = 0) -> Optional[list[torch.Tensor]]:
+        if self.size == 1:
+            return [t]
+        _note("all-gather", self.size * _nbytes(t), _nbytes(t), t)
+        return (None if self.index != dst else
+                [t if i == self.index else torch.empty_like(t)
+                 for i in range(self.size)])
+
+    def send_to(self, t: torch.Tensor, src: int, dst: int) -> torch.Tensor:
+        if src != dst and self.index in (src, dst):
+            _note("collective-permute", _nbytes(t), _nbytes(t), t)
+        return t
+
+    def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        if self.size > 1:
+            _note("collective-permute", _nbytes(t), _nbytes(t), t)
+        return t
+
+    def exchange(self, send: torch.Tensor, to: int, recv: torch.Tensor,
+                 frm: int) -> None:
+        _note("collective-permute", _nbytes(recv), _nbytes(send), send)
+
+
+class AbstractMesh(Mesh):
+    """A mesh of any shape seen from one rank (``rank``, 0 by default),
+    with no world: the reference's ``jax.sharding.AbstractMesh``. Its
+    groups are ``AbstractAxisGroup``s."""
+
+    def __init__(self, shape: tuple[int, ...], axis_names: tuple[str, ...],
+                 rank: int = 0):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"shape {shape} and axes {axis_names} differ in length")
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, (int(n) for n in shape)))
+        self.size = math.prod(self.shape.values())
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is not on mesh {self.shape}")
+        self.rank = rank
+        self._build_groups()
+
+    def _new_group(self, ranks: list[int]) -> None:
+        return None
+
+    _axis_group = AbstractAxisGroup
+
+    def barrier(self) -> None:
+        pass
+
+
+def abstract_mesh(spec: str, rank: int = 0) -> AbstractMesh:
+    """The ``AbstractMesh`` a launcher's ``--mesh`` names (``single``,
+    ``multi``, ``DxM`` or ``PxDxM``), seen from ``rank``."""
+    return AbstractMesh(*parse_mesh(spec), rank=rank)
 
 
 def dp_axes(mesh) -> tuple[str, ...]:

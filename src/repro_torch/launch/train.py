@@ -206,7 +206,8 @@ def train(args, log=print, mesh=None) -> dict:
         sup = Supervisor(step, ckpt, SupervisorConfig(ckpt_every=args.ckpt_every))
         dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                         global_batch=args.batch)
-        batches = (device_put_batch(b, mesh, setup.rules, dev) if mesh is not None
+        batches = (device_put_batch(b, mesh, setup.rules, dev,
+                                    setup.cfg.microbatches) if mesh is not None
                    else batch_to_device(b, dev) for b in SyntheticLM(dc).batches())
         t0 = time.perf_counter()
         state = sup.run(state, batches, args.steps,

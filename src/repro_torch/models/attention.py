@@ -6,17 +6,23 @@ layer but the local ones, as the reference passes it), one-token decode
 against a KV cache.
 
 Under tensor parallelism (``tp``) a rank holds the columns of ``wq`` for
-its query heads and of ``wk``/``wv`` for the KV heads they read
-(``train.sharding.head_plan``), and the rows of ``wo`` for its heads, which
-is row-parallel. Prefill runs the flash kernel on the rank's own
-projections. Where the rank's heads do not group G' to a KV head (a KV
-head shared across a rank boundary), each head gets its KV head's copy.
+its query heads (``train.sharding.head_plan``), an even share of the
+columns of ``wk``/``wv`` (the reference's shard), and the rows of ``wo``
+for its heads, which is row-parallel. Where its heads read KV columns that
+other ranks hold (a KV head shared across ranks: MQA, or fewer KV heads
+than ranks), it gathers them (``TPContext.attn_weights``). Where ``model``
+divides neither the heads nor ``pad_heads_to``, ``wq`` is cut mid-head too:
+every rank gathers q, k and v whole, computes every head and keeps its own
+columns of the output for ``wo``. Prefill runs the flash kernel on the
+rank's projections. Where the rank's heads do not group G' to a KV head (a
+KV head shared across a rank boundary), each head gets its KV head's copy.
 With ``pad_heads_to`` a rank's share of the padded heads may hold fewer
 real heads than another's; the pad heads are skipped, which changes no
 logit (the reference slices them off before ``wo``). In training the
-gradient of a KV head that ranks share, and of the q/k norm scales, is on
-each rank the part its own heads give: the train step sums it over the
-ranks (``train_step.TrainSetup``, ``sharding.shared_over_model``). Decode with a
+gradient of the q/k norm scales is on each rank the part its own heads
+give: the train step sums it over the ranks (``train_step.TrainSetup``,
+``sharding.shared_over_model``); a gathered projection's gradient is summed
+by its gather's backward. Decode with a
 sequence-sharded cache (``tp.seq``): each ``data`` rank scores its slots
 and keeps an f32 partial (max, sum, unnormalised output); the partials are
 combined over ``data``, as GSPMD's SP all-reduces combine them.
@@ -117,6 +123,8 @@ def attention(params: dict, x: torch.Tensor, *, cfg, kind: str,
 
     if tp is not None:
         x = tp.to_model(x)
+        params = tp.attn_weights(params)
+        Hq, Hkv = params["wq"].shape[1] // D, params["wk"].shape[1] // D
     q, k, v = (dense(x, params[w]) for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q = q + params["bq"].to(x.dtype)
@@ -166,4 +174,7 @@ def attention(params: dict, x: torch.Tensor, *, cfg, kind: str,
         o = gqa_attention(q, k_att, v_att, scale=scale,
                           softcap=cfg.attn_softcap, causal=True,
                           window=window, prefix=prefix)
-    return row_dense(o.reshape(B, S, Hq * D), params["wo"], tp), new_cache
+    o = o.reshape(B, S, Hq * D)
+    if tp is not None:
+        o = tp.own_columns(o)
+    return row_dense(o, params["wo"], tp), new_cache

@@ -8,8 +8,8 @@ slot holds pos = -1. k/v are stored flat as (B, T, Hkv*D).
 
 The specs carry the reference's logical axes, so on a mesh each rank holds
 its share (``train.sharding.local_specs``): its batch rows, its KV heads
-(``kv_flat``, the heads its query heads read), its mamba or RG-LRU
-channels, and under ``seq_shard_kv`` its slot range of each global cache
+(``kv_cache``, the reference's ``kv_flat``: the heads its query heads
+read), its mamba or RG-LRU channels, and under ``seq_shard_kv`` its slot range of each global cache
 (``kv_seq`` over ``data``: ``seq`` below is this rank's (index, count)
 there); local rings stay whole on every ``data`` rank, as the reference's
 rule has it.
@@ -28,7 +28,7 @@ def attn_cache_specs(cfg, B: int, T: int, kind: str) -> dict[str, ParamSpec]:
     size = min(cfg.attn_window, T) if kind == "local" else T
     seq_ax = "kv_seq" if kind != "local" else None   # rings are small
     F = cfg.n_kv_heads * cfg.head_dim
-    kv = ("batch", seq_ax, "kv_flat")
+    kv = ("batch", seq_ax, "kv_cache")     # the reference's kv_flat
     return {
         "k": ParamSpec((B, size, F), cfg.compute_dtype, init="zeros", axes=kv),
         "v": ParamSpec((B, size, F), cfg.compute_dtype, init="zeros", axes=kv),

@@ -13,11 +13,15 @@ On a mesh with ``model`` > 1 the layers take a ``tp`` context
 summed over ``model``; each caller does this once for the products that
 share an input); ``row_dense`` sums its partial over ``model`` in f32 and
 rounds once (``tp.reduce``), as GSPMD all-reduces the dot's f32 accumulator
-(the reference's default, ``_LOWP_COLLECTIVES = False``). Without ``tp``
-every layer is the one-device one, bit for bit.
+(the reference's default, ``_LOWP_COLLECTIVES = False``). Under
+``lowp_collectives()`` the partial is the product in the compute dtype and
+the sum rides the wire in it, as the reference's ``lowp`` option emits the
+contraction's output in the compute dtype. Without ``tp`` every layer is
+the one-device one, bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Optional
@@ -99,6 +103,13 @@ def tree_leaves(tree: Tree) -> list:
     return [tree]
 
 
+def abstract_params(spec_tree: Tree) -> Tree:
+    """Every leaf as a meta tensor of its spec's shape and dtype: no
+    storage, no generator (the reference's ``ShapeDtypeStruct`` tree)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=to_dtype(s.dtype),
+                                          device="meta"), spec_tree)
+
+
 def init_params(spec_tree: Tree, generator: torch.Generator,
                 device: torch.device, cut: Optional[Callable] = None) -> Tree:
     """Every leaf drawn whole, in order, from ``generator``. With ``cut``
@@ -152,12 +163,38 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w.to(x.dtype)
 
 
-def row_dense(x: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
+_LOWP = [False]   # set by lowp_collectives(); read where a partial is made
+
+
+@contextlib.contextmanager
+def lowp_collectives(enabled: bool = True):
+    """Within the block the row-parallel partials are taken in the compute
+    dtype and summed over ``model`` in it (bf16 on the wire instead of the
+    f32 accumulator: half the bytes), the reference's ``lowp`` option."""
+    prev = _LOWP[0]
+    _LOWP[0] = enabled
+    try:
+        yield
+    finally:
+        _LOWP[0] = prev
+
+
+def lowp() -> bool:
+    return _LOWP[0]
+
+
+def row_dense(x: torch.Tensor, w: torch.Tensor, tp=None,
+              sublayer_out: bool = True) -> torch.Tensor:
     """``dense`` with ``w``'s rows (the contraction) sharded over ``model``:
-    each rank's f32 partial, summed over the ranks and rounded once."""
+    each rank's f32 partial, summed over the ranks and rounded once (under
+    ``lowp_collectives`` the partial in ``x``'s dtype, summed in it).
+    ``sublayer_out``: the sum is a sublayer's output, which the "comm"
+    remat policy keeps (``TPContext.reduce``)."""
     if tp is None or tp.m == 1:
         return dense(x, w)
-    return tp.reduce(x.float() @ w.float(), x.dtype)
+    if lowp():
+        return tp.reduce(dense(x, w), x.dtype, sublayer_out, wide=False)
+    return tp.reduce(x.float() @ w.float(), x.dtype, sublayer_out=sublayer_out)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

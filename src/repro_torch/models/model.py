@@ -24,7 +24,8 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import init_params, softcap, to_dtype, unembed
+from repro_torch.models.layers import (abstract_params, init_params, softcap,
+                                      to_dtype, unembed)
 
 Tree = Any
 
@@ -54,6 +55,17 @@ class Model:
                 return local_slice(spec, mesh, rules, self.cfg)
         return tfm.unstack_scan(init_params(self.param_specs(), gen, dev, cut),
                                 self.cfg)
+
+    def abstract_params(self, mesh=None, rules: Optional[dict] = None) -> Tree:
+        """``init``'s tree as meta tensors (shapes and dtypes, no storage),
+        ``scan`` entries per period as views of one stacked tensor, as
+        ``init`` gives them; with a ``mesh`` and its ``rules`` this rank's
+        shares (``train.sharding.local_specs``)."""
+        specs = self.param_specs()
+        if mesh is not None:
+            from repro_torch.train.sharding import local_specs
+            specs = local_specs(specs, mesh, rules, self.cfg)
+        return tfm.unstack_scan(abstract_params(specs), self.cfg)
 
     def compute_params(self, params: Tree) -> Tree:
         """Cast every weight matrix to the compute dtype once. The layers
@@ -93,15 +105,24 @@ class Model:
             init_params(self.cache_specs(B, T, mesh, rules), gen, dev),
             self.cfg)
 
+    def abstract_cache(self, B: int, T: int, mesh=None,
+                       rules: Optional[dict] = None) -> Tree:
+        """``init_cache``'s tree as meta tensors."""
+        return tfm.unstack_scan(
+            abstract_params(self.cache_specs(B, T, mesh, rules)), self.cfg)
+
     # -- forward ----------------------------------------------------------
     def loss_fn(self, params: Tree, batch: dict, xent_chunk: int = 512,
-                tp=None):
+                tp=None, denom: Optional[torch.Tensor] = None):
         """batch: tokens/targets/loss_mask (B,S) [+ prefix_embed (B,P,M)].
         Returns (loss, metrics): loss = nll + 1e-4 z2 + 1e-2 moe_lb +
         1e-3 moe_z, metrics {nll, z2, moe_lb, moe_z} as f32 scalars. With
         prefix embeddings the loss is on the text positions only. On a mesh
         (``tp``) ``params`` and the rows are this rank's, and the loss is
-        the same on every rank of its ``model`` group."""
+        the same on every rank of its ``model`` group. nll and z2 are the
+        masked sums over the mask's count (at least 1), or over ``denom``
+        where given (a DP rank's share of the global count, so that the DP
+        mean is the global masked mean: ``TrainSetup``)."""
         cfg = self.cfg
         prefix = batch.get("prefix_embed")
         if prefix is not None and prefix.shape[1] != cfg.n_prefix:
@@ -114,7 +135,7 @@ class Model:
         if cfg.n_prefix and "prefix_embed" in batch:
             hidden = hidden[:, cfg.n_prefix:]
         nll, z2 = _chunked_xent(params, hidden, batch["targets"],
-                                batch["loss_mask"], cfg, xent_chunk, tp)
+                                batch["loss_mask"], cfg, xent_chunk, tp, denom)
         aux = {k: torch.as_tensor(v, dtype=torch.float32, device=nll.device)
                for k, v in aux.items()}
         loss = nll + 1e-4 * z2 + 1e-2 * aux["moe_lb"] + 1e-3 * aux["moe_z"]
@@ -167,10 +188,12 @@ def _xent_chunk(embed_params: dict, h: torch.Tensor, t: torch.Tensor,
 
 
 def _chunked_xent(params: dict, hidden: torch.Tensor, targets: torch.Tensor,
-                  mask: torch.Tensor, cfg, chunk: int, tp=None):
+                  mask: torch.Tensor, cfg, chunk: int, tp=None,
+                  denom: Optional[torch.Tensor] = None):
     """Sequence-chunked masked cross-entropy and z-loss term. hidden:
     (B,S,M); targets/mask: (B,S). S is padded to a multiple of the chunk
-    (pad positions are masked out); each chunk is recomputed in backward."""
+    (pad positions are masked out); each chunk is recomputed in backward.
+    The sums are divided by the mask's count (at least 1) or ``denom``."""
     B, S, _ = hidden.shape
     c = min(chunk, S)
     pad = (-S) % c
@@ -188,5 +211,6 @@ def _chunked_xent(params: dict, hidden: torch.Tensor, targets: torch.Tensor,
         nll_sum = nll_sum + nll_c
         z2_sum = z2_sum + z2_c
         m_sum = m_sum + mask[:, sl].sum()
-    denom = torch.clamp(m_sum, min=1.0)
+    if denom is None:
+        denom = torch.clamp(m_sum, min=1.0)
     return nll_sum / denom, z2_sum / denom

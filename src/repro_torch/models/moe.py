@@ -155,7 +155,7 @@ def moe_block(params: dict, x: torch.Tensor, *, cfg, tp=None):
     y = torch.zeros((G * T, M), dtype=torch.float32, device=x.device)
     y = y.index_add(0, dest, contrib.reshape(G * E_local * C, M))
     y = (y.to(x.dtype) if tp is None or tp.m == 1
-         else tp.reduce(y, x.dtype))
+         else tp.reduce(y, x.dtype, sublayer_out=True))
     y = y.reshape(-1, S, M)
     if rows is not None:
         y = y[rows]

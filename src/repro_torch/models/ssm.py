@@ -83,7 +83,7 @@ def mamba_block(params: dict, x: torch.Tensor, *, cfg,
                                 conv_carry)
     xi = F.silu(xi)
 
-    bcdt = row_dense(xi, params["x_proj"], tp)
+    bcdt = row_dense(xi, params["x_proj"], tp, sublayer_out=False)
     if tp is not None:      # dt_r, B and C feed this rank's channels alone
         bcdt = tp.to_model(bcdt)
     dt_r, Bm, Cm = bcdt.split([R, N, N], dim=-1)

@@ -10,8 +10,23 @@ periods axis for ``lax.scan``; here a Python loop replaces the scan, so each
 Under autograd each block is rematerialized when ``cfg.remat`` is not
 "none": ``torch.utils.checkpoint`` keeps the block's input and recomputes
 the block in the backward pass, as the reference's ``jax.checkpoint`` does.
-The reference's "dots" and "comm" policies save some of a block's products;
-here they are treated as "full" (they change memory, not what is computed).
+What the recompute may take from the forward follows the reference's
+policies:
+  * "full" saves nothing but the block's input;
+  * "dots" also saves every product without batch dims (``aten.mm`` and
+    ``aten.addmm``: the 2-D weight products, not attention's or the
+    experts' batched ones), the twin of
+    ``checkpoint_dots_with_no_batch_dims``, through a selective
+    checkpoint policy;
+  * "comm" also saves the post-all-reduce sublayer outputs (attention,
+    MLP or MoE, mixer), the twin of ``save_only_these_names("attn_out",
+    "ffn_out", "mixer_out")``: the collectives are ``autograd.Function``s
+    over gloo, which no aten-level policy sees, so the block runs under
+    ``TPContext.keeping`` and its recompute takes each such sum from the
+    forward instead of all-reducing again (the partial's product is
+    recomputed, as eager code cannot drop it). Off a ``model`` > 1 mesh it
+    is "full".
+All three give the same gradients, bit for bit.
 
 On a mesh one ``tp`` context (``train.sharding.TPContext``: the mesh, the
 rules, the head plan) goes through every block and the unembed; without
@@ -165,6 +180,38 @@ def apply_block(kind: str, p: dict, x: torch.Tensor, *, cfg,
     return x + f_out, aux, new_cache
 
 
+REMAT = ("none", "full", "dots", "comm")
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _NO_BATCH_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpointed(block, policy: str, tp, *args):
+    """``block(*args)`` under ``torch.utils.checkpoint`` with the remat
+    ``policy`` (module docstring)."""
+    if policy not in REMAT:
+        raise ValueError(f"remat {policy!r} not in {REMAT}")
+    if policy == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+        return torch.utils.checkpoint.checkpoint(
+            block, *args, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(_dots_policy))
+    if policy == "comm" and tp is not None and tp.m > 1:
+        from repro_torch.train.sharding import KeptSums
+        store = KeptSums()
+
+        def keeping(*a):
+            with tp.keeping(store):
+                return block(*a)
+        return torch.utils.checkpoint.checkpoint(keeping, *args,
+                                                 use_reentrant=False)
+    return torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False)
+
+
 def apply_stack(params: dict, x: torch.Tensor, *, cfg,
                 positions: torch.Tensor, cache: Optional[dict] = None,
                 return_cache: bool = False, cache_len: int = 0, tp=None):
@@ -188,8 +235,7 @@ def apply_stack(params: dict, x: torch.Tensor, *, cfg,
 
     def run(kind, p, x, c_in):
         if remat:
-            out = torch.utils.checkpoint.checkpoint(
-                block, kind, p, x, c_in, use_reentrant=False)
+            out = _checkpointed(block, cfg.remat, tp, kind, p, x, c_in)
         else:
             out = block(kind, p, x, c_in)
         x, block_aux, nc = out

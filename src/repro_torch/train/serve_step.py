@@ -49,6 +49,15 @@ class ServeSetup:
         """Seeded params: this rank's shard of the one-device init."""
         return self.model.init(seed, device, mesh=self.mesh, rules=self.rules)
 
+    def abstract_params(self):
+        """This rank's params as meta tensors (the dry run's)."""
+        return self.model.abstract_params(self.mesh, self.rules)
+
+    def abstract_cache(self, B: int, T: int):
+        """This rank's caches of a global batch of B rows and T slots, as
+        meta tensors."""
+        return self.model.abstract_cache(B, T, self.mesh, self.rules)
+
     # -- steps -------------------------------------------------------------
     def prefill_fn(self, max_len: int = 0) -> Callable:
         def prefill(params, batch: dict):

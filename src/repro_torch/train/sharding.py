@@ -23,12 +23,21 @@ and for ``fsdp_experts`` an all-gather over ``data`` whose backward sums the
 gradients over ``data`` and keeps this rank's slice.
 
 An axis is cut by what it means where that differs from a contiguous cut of
-the stored axis: the flat ``qkv`` and ``kv_flat`` projections on whole heads
-(``head_plan``), and an axis that holds ``ParamSpec.parts`` equal blocks
-side by side (mamba's ``in_proj``, [x | z]) block by block.
+the stored axis: the flat ``qkv`` projections on whole query heads and a KV
+cache's flat axis on their KV heads (``head_plan``), and an axis that holds
+``ParamSpec.parts`` equal blocks side by side (mamba's ``in_proj``, [x | z])
+block by block. Every other axis, the flat KV projections too, is cut
+evenly, as GSPMD cuts the reference's: so a rank's params have the
+reference's shard shapes on every mesh. Where a rank's heads read KV
+columns that other ranks store (MQA, or a model axis the KV heads do not
+divide), the layer gathers them; where ``model`` divides neither the query
+heads nor ``pad_heads_to`` (gemma3-4b's 8 over 16), the query projection
+is cut mid-head and every rank gathers all of q, k and v and computes every
+head, keeping its own columns of the output for the row-parallel ``wo``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import types
 from typing import Any, Optional
@@ -92,27 +101,37 @@ def make_rules(mesh, cfg=None, *, seq_shard_kv: bool = False,
     }
 
 
-def batch_rows(mesh, rules, n_rows: int) -> slice:
+def batch_rows(mesh, rules, n_rows: int, microbatches: int = 1):
     """The rows of an ``n_rows`` global batch this rank takes: the whole
     batch where ``rules["batch"]`` replicates it, else its DP position's
     contiguous block (pod-major over the DP axes, as the reference's
-    ``P(("pod", "data"))`` places them)."""
+    ``P(("pod", "data"))`` places them), a slice. With ``microbatches`` n
+    the reference splits the global batch into n contiguous microbatches
+    and puts DP on each: the rows are then this rank's block of each
+    microbatch in turn (a list of indices), so that the step's contiguous
+    split of them gives microbatch i its DP share of global microbatch i."""
     dp = rules["batch"]
     if dp is None:
         return slice(0, n_rows)
     n, index = _axis_share(mesh, dp)
-    if n_rows % n:
+    if n_rows % (n * microbatches):
         raise ValueError(f"a batch of {n_rows} rows does not split over {n} "
-                         f"DP ranks ({dp})")
-    per = n_rows // n
-    return slice(index * per, (index + 1) * per)
+                         f"DP ranks ({dp}) in {microbatches} microbatches")
+    if n == 1 or microbatches == 1:
+        per = n_rows // n
+        return slice(index * per, (index + 1) * per)
+    mb, per = n_rows // microbatches, n_rows // (n * microbatches)
+    return [i * mb + index * per + r for i in range(microbatches)
+            for r in range(per)]
 
 
-def shard_batch(mesh, rules, batch: dict) -> dict:
+def shard_batch(mesh, rules, batch: dict, microbatches: int = 1) -> dict:
     """This rank's rows of every array of the global ``batch`` (numpy or
-    tensors, leading axis the batch). Replaces the reference's
-    ``batch_shardings``: a rank holds its shard and nothing else."""
-    rows = batch_rows(mesh, rules, next(iter(batch.values())).shape[0])
+    tensors, leading axis the batch; ``batch_rows`` with the step's
+    ``microbatches``). Replaces the reference's ``batch_shardings``: a rank
+    holds its shard and nothing else."""
+    rows = batch_rows(mesh, rules, next(iter(batch.values())).shape[0],
+                      microbatches)
     return {k: (np.ascontiguousarray(v[rows]) if isinstance(v, np.ndarray)
                 else v[rows].contiguous()) for k, v in batch.items()}
 
@@ -122,7 +141,8 @@ def shard_batch(mesh, rules, batch: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def head_plan(cfg, model_n: int, model_index: int) -> tuple[int, int, int, int]:
+def head_plan(cfg, model_n: int, model_index: int
+              ) -> Optional[tuple[int, int, int, int]]:
     """(h_lo, h_hi, kv_lo, kv_hi): the query heads this model rank computes,
     a contiguous range of the real heads, and the KV heads they read (head h
     reads h // G), which are its own where ``model`` divides the KV heads
@@ -132,8 +152,11 @@ def head_plan(cfg, model_n: int, model_index: int) -> tuple[int, int, int, int]:
     G query heads to Gp = pad_heads_to // Hkv (the pad heads inert) and
     shards the padded heads: where ``model`` divides them, a rank owns a
     range of the padded heads, computes the real ones among it and skips
-    the pad. Otherwise the real heads split evenly; where ``model`` divides
-    neither, this raises."""
+    the pad. Otherwise the real heads split evenly. Where ``model`` divides
+    neither, the heads split mid-head, as GSPMD cuts the flat projections
+    of the reference (gemma3-4b's 8 heads over 16 ranks): None, and every
+    rank computes every head (``TPContext.split``); where ``model`` does
+    not divide the flat projections either, this raises."""
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
     G, pad = Hq // Hkv, cfg.pad_heads_to
     if pad > Hq and pad % model_n == 0:
@@ -146,9 +169,12 @@ def head_plan(cfg, model_n: int, model_index: int) -> tuple[int, int, int, int]:
     elif Hq % model_n == 0:
         per = Hq // model_n
         h_lo, h_hi = model_index * per, (model_index + 1) * per
+    elif (Hq * cfg.head_dim) % model_n == 0 and (Hkv * cfg.head_dim) % model_n == 0:
+        return None
     else:
         raise ValueError(f"model axis {model_n} divides neither n_heads {Hq} "
-                         f"nor pad_heads_to {pad} of {cfg.name}")
+                         f"nor pad_heads_to {pad} of {cfg.name}, nor its "
+                         f"flat projections")
     if h_hi == h_lo:
         return h_lo, h_hi, h_lo // G, h_lo // G
     return h_lo, h_hi, h_lo // G, (h_hi - 1) // G + 1
@@ -168,17 +194,30 @@ def _axis_share(mesh, rule) -> tuple[int, int]:
 Cuts = tuple  # one list of (start, stop) ranges a dimension
 
 
+def _rule(rules: dict, axis: Optional[str]):
+    """The mesh axes a logical axis maps onto. A KV cache's flat axis
+    (``kv_cache``, the reference's ``kv_flat``) follows ``kv_flat``'s rule
+    and is cut on the rank's KV heads."""
+    if not axis:
+        return None
+    return rules.get("kv_flat" if axis == "kv_cache" else axis)
+
+
 def local_slice(spec, mesh, rules: dict, cfg=None) -> Cuts:
     """This rank's share of ``spec`` (its shape and logical ``axes``): for
     each dimension, the ranges of the stored axis it keeps, concatenated in
-    order. ``qkv`` and ``kv_flat`` are cut on the heads of ``head_plan``
-    (``cfg`` gives the heads); an axis of ``spec.parts`` blocks keeps its
-    share of each block; every other axis that a rule maps onto the mesh
-    splits evenly and raises where it does not divide."""
+    order. ``qkv`` is cut on the query heads of ``head_plan`` and a KV
+    cache's ``kv_cache`` on their KV heads (``cfg`` gives the heads; every
+    head, whole, where the plan splits mid-head); an axis of
+    ``spec.parts`` blocks keeps its share of each block; every other axis
+    that a rule maps onto the mesh (``kv_flat`` too: the reference's even
+    cut, which the layer gathers where a rank's heads read other columns,
+    ``TPContext.kv_cols``) splits evenly and raises where it does not
+    divide."""
     cuts, used = [], set()
     axes = spec.axes or (None,) * len(spec.shape)
     for dim, (a, n) in enumerate(zip(axes, spec.shape)):
-        rule = rules.get(a) if a else None
+        rule = _rule(rules, a)
         if rule is None:
             cuts.append([(0, n)])
             continue
@@ -188,10 +227,15 @@ def local_slice(spec, mesh, rules: dict, cfg=None) -> Cuts:
                              f"mesh axis {sorted(used & set(mesh_axes))}")
         used |= set(mesh_axes)
         k, index = _axis_share(mesh, rule)
-        if a in ("qkv", "kv_flat") and rule == "model":
-            h_lo, h_hi, kv_lo, kv_hi = head_plan(cfg, k, index)
+        plan = (head_plan(cfg, k, index)
+                if a in ("qkv", "kv_cache") and rule == "model" else None)
+        if plan is not None:
+            h_lo, h_hi, kv_lo, kv_hi = plan
             lo, hi = (h_lo, h_hi) if a == "qkv" else (kv_lo, kv_hi)
             cuts.append([(lo * cfg.head_dim, hi * cfg.head_dim)])
+            continue
+        if a == "kv_cache" and rule == "model":     # every head, whole
+            cuts.append([(0, n)])
             continue
         parts = spec.parts if rule == "model" else 1
         if n % (k * parts):
@@ -266,7 +310,7 @@ def mesh_axes(spec, rules: dict) -> dict[str, int]:
     """{mesh axis: the dimension of ``spec`` it cuts}."""
     out = {}
     for dim, a in enumerate(spec.axes or ()):
-        rule = rules.get(a) if a else None
+        rule = _rule(rules, a)
         for m in ((rule,) if isinstance(rule, str) else tuple(rule or ())):
             out[m] = dim
     return out
@@ -352,25 +396,13 @@ def counted_cuts(spec, mesh, rules: dict, cfg=None) -> Optional[Cuts]:
 
 def shared_over_model(spec, mesh, rules: dict, cfg=None) -> bool:
     """Whether the ranks of a ``model`` group each hold a partial gradient
-    of this leaf, to be summed over the ranks that hold each element: q/k
-    norm scales (replicated, used on each rank's heads) and KV projections
-    whose heads ranks share (MQA, or a model axis the KV heads do not
-    divide)."""
+    of this leaf, to be summed over the group: the q/k norm scales
+    (replicated, used on each rank's heads). A KV projection whose heads
+    ranks share is stored cut evenly and gathered where it is used, its
+    gradient summed by the gather's backward (``TPContext.attn_weights``)."""
     if mesh.shape.get("model", 1) == 1:
         return False
-    axes = spec.axes or ()
-    if "head_dim" in axes:
-        return True
-    if "kv_flat" not in axes:
-        return False
-    dim = axes.index("kv_flat")
-    seen = set()
-    for c in peer_cuts(spec, mesh, rules, cfg, "model"):
-        for a, b in c[dim]:
-            if seen & set(range(a, b)):
-                return True
-            seen.update(range(a, b))
-    return False
+    return "head_dim" in (spec.axes or ())
 
 
 # ---------------------------------------------------------------------------
@@ -387,18 +419,36 @@ class TPContext:
     group the expert weights are sharded over with ``fsdp_experts``
     (``fsdp``, else None: the rules map ``expert_ffn`` onto ``data``).
 
-    Partial sums travel in f32 and are rounded once to the compute dtype;
-    gathers travel in f32 and come back in the tensor's dtype. Under
-    autograd every collective has its backward (module docstring), and
-    every rank issues the same collectives in the same order, forward,
-    backward and the recompute of a checkpointed block alike."""
+    Partial sums travel in f32 and are rounded once to the compute dtype
+    (in the compute dtype under ``models.layers.lowp_collectives``, whose
+    ``row_dense`` hands over a compute-dtype partial); gathers travel in
+    f32 and come back in the tensor's dtype. Under autograd every
+    collective has its backward (module docstring), and every rank issues
+    the same collectives in the same order, forward, backward and the
+    recompute of a checkpointed block alike.
+
+    ``keeping(store)`` is the "comm" remat policy's hook: within it each
+    sum marked ``sublayer_out`` (a block's attention, MLP, MoE or mixer
+    output) is kept in ``store`` on the block's first pass, and on its
+    recompute the kept sum is handed back, the partial's gradient passing
+    as before, so the backward issues no forward all-reduce again."""
 
     def __init__(self, mesh, rules: dict, cfg):
         self.mesh, self.rules, self.cfg = mesh, rules, cfg
         self.model = mesh.groups["model"]
         self.m, self.r = self.model.size, self.model.index
-        self.heads = head_plan(cfg, self.m, self.r)
+        attn = any(k in ("dense", "local", "global", "moe")
+                   for k in cfg.layer_pattern)
+        plan = head_plan(cfg, self.m, self.r) if attn else None
+        # split: the heads are cut mid-head; every rank computes them all
+        self.split = plan is None and self.m > 1
+        self.heads = plan or (0, cfg.n_heads, 0, cfg.n_kv_heads)
         h_lo, h_hi, kv_lo, kv_hi = self.heads
+        D, per = cfg.head_dim, cfg.n_kv_heads * cfg.head_dim // self.m
+        # the KV columns this rank's heads read, where it stores others
+        self.kv_cols = (None if (kv_lo * D, kv_hi * D) ==
+                        (self.r * per, (self.r + 1) * per)
+                        else (kv_lo * D, kv_hi * D))
         n_q, n_kv = h_hi - h_lo, kv_hi - kv_lo
         G = cfg.n_heads // cfg.n_kv_heads
         kv_of = [h // G - kv_lo for h in range(h_lo, h_hi)]
@@ -415,6 +465,7 @@ class TPContext:
         ffn = rules.get("expert_ffn")
         self.fsdp = (mesh.groups[ffn] if ffn and mesh.groups[ffn].size > 1
                      else None)
+        self.kept: Optional[KeptSums] = None
 
     def to_model(self, x: torch.Tensor) -> torch.Tensor:
         """The input of column-parallel products: itself; under autograd its
@@ -423,12 +474,33 @@ class TPContext:
             return x
         return _ToModel.apply(x, self.model)
 
-    def reduce(self, partial: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """The sum over ``model`` of an f32 partial, rounded once to dtype;
-        under autograd each rank's partial takes the sum's gradient."""
+    def reduce(self, partial: torch.Tensor, dtype: torch.dtype,
+               sublayer_out: bool = False, wide: bool = True) -> torch.Tensor:
+        """The sum over ``model`` of a partial, taken in f32 (with
+        ``wide``; else in the partial's own dtype, as ``row_dense`` asks
+        under ``lowp_collectives``) and rounded once to dtype; under
+        autograd each rank's partial takes the sum's gradient.
+        ``sublayer_out``: a block's sublayer output, kept under
+        ``keeping``."""
         if self.m == 1:
             return partial.to(dtype)
-        return _Reduce.apply(partial, self.model, dtype)
+        kept = self.kept if sublayer_out else None
+        if kept is not None and kept.replaying:
+            return _Replayed.apply(partial, kept.next())
+        out = _Reduce.apply(partial, self.model, dtype, wide)
+        if kept is not None:
+            kept.sums.append(out.detach())
+        return out
+
+    @contextlib.contextmanager
+    def keeping(self, store: "KeptSums"):
+        """One pass of a block under the "comm" policy (class docstring)."""
+        prev, self.kept = self.kept, store
+        store.begin()
+        try:
+            yield
+        finally:
+            self.kept = prev
 
     def gather(self, t: torch.Tensor, group=None, dim: int = -1) -> torch.Tensor:
         """Every rank's ``t`` of ``group`` (default ``model``) concatenated
@@ -438,6 +510,34 @@ class TPContext:
         if group.size == 1:
             return t
         return _Gather.apply(t, group, dim)
+
+    def attn_weights(self, params: dict) -> dict:
+        """The attention projections this rank computes with: its own
+        shares where they are what its heads read; else gathered over
+        ``model`` (a gather whose backward sums the gradient over the group
+        and keeps this rank's share): every q column where the heads are
+        split mid-head, and the KV columns of its heads where ranks share
+        them."""
+        out = dict(params)
+        if self.split:
+            for w, dim in (("wq", 1), ("bq", 0)):
+                if w in params:
+                    out[w] = _GatherSum.apply(params[w], self.model, dim)
+        if self.kv_cols is not None:
+            lo, hi = self.kv_cols
+            for w, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+                if w in params:
+                    out[w] = _GatherSum.apply(params[w], self.model,
+                                              dim).narrow(dim, lo, hi - lo)
+        return out
+
+    def own_columns(self, o: torch.Tensor) -> torch.Tensor:
+        """Where the heads are split mid-head: this rank's even share of the
+        flat attention output's columns, the rows its ``wo`` holds."""
+        if not self.split:
+            return o
+        per = o.shape[-1] // self.m
+        return o.narrow(-1, self.r * per, per)
 
     def fsdp_gather(self, w: torch.Tensor, dim: int) -> torch.Tensor:
         """An expert weight whole along ``dim`` (``expert_ffn``) from its
@@ -457,6 +557,27 @@ class TPContext:
         return _VocabLogZ.apply(lg, self.model)
 
 
+class KeptSums:
+    """The sublayer sums of one block's forward, handed back in order on
+    each later pass (its recomputes)."""
+
+    def __init__(self):
+        self.sums: list[torch.Tensor] = []
+        self.passes = self.cursor = 0
+
+    @property
+    def replaying(self) -> bool:
+        return self.passes > 1
+
+    def begin(self) -> None:
+        self.passes += 1
+        self.cursor = 0
+
+    def next(self) -> torch.Tensor:
+        self.cursor += 1
+        return self.sums[self.cursor - 1]
+
+
 def _wide(t: torch.Tensor) -> torch.Tensor:
     """``t`` in f32, or as it is where it is wider (f64, integers)."""
     return t if t.dtype in (torch.float64, torch.int32, torch.int64) else t.float()
@@ -465,8 +586,9 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
 def _sum_f32(group, t: torch.Tensor) -> torch.Tensor:
     """A new tensor: ``t``'s sum over ``group``, taken in f32 (or wider) and
     rounded once to ``t``'s dtype."""
-    buf = _wide(t.detach())
-    if buf.data_ptr() == t.data_ptr():
+    det = t.detach()
+    buf = _wide(det)
+    if buf is det:             # no copy made: ``t`` itself must not change
         buf = buf.clone()
     return group.all_reduce_sum(buf.contiguous()).to(t.dtype)
 
@@ -488,16 +610,31 @@ class _ToModel(torch.autograd.Function):
 
 class _Reduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, partial, group, dtype):
+    def forward(ctx, partial, group, dtype, wide=True):
         ctx.in_dtype = partial.dtype
-        buf = _wide(partial.detach())
-        if ctx.needs_input_grad[0] and buf.data_ptr() == partial.data_ptr():
+        det = partial.detach()
+        buf = _wide(det) if wide else det
+        if ctx.needs_input_grad[0] and buf is det:
             buf = buf.clone()      # a partial autograd may still read
         return group.all_reduce_sum(buf.contiguous()).to(dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return g.to(ctx.in_dtype), None, None
+        return g.to(ctx.in_dtype), None, None, None
+
+
+class _Replayed(torch.autograd.Function):
+    """A kept sum in place of its all-reduce: the partial's gradient is the
+    sum's, as ``_Reduce``'s."""
+
+    @staticmethod
+    def forward(ctx, partial, kept):
+        ctx.in_dtype = partial.dtype
+        return kept.view_as(kept)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.in_dtype), None
 
 
 class _Gather(torch.autograd.Function):

@@ -24,10 +24,18 @@ step then follows the reference's three branches:
     all-reduced to their f32 mean over the DP axes, each rank its TP shard.
     An ``fsdp_experts`` leaf is already summed over ``data`` by its
     gather's backward, so it is summed over ``pod`` alone.
-Loss and metrics are averaged over the DP ranks: each rank's loss is the
-mean over its own rows, so this equals the reference's global-batch loss
-where every rank's rows hold the same number of unmasked tokens (every
-batch ``SyntheticLM`` makes). Every rank then holds the same reduced
+Loss and metrics are averaged over the DP ranks. The reference's loss is
+the masked mean over the whole (micro)batch, ``nll_sum / m_sum``; so each
+rank divides its masked sums by its share of the global count (the
+(micro)batch's unmasked tokens summed over the DP ranks before the step,
+one all-reduce, over the DP size), and the DP mean of loss, metrics and
+gradients is the global masked mean whatever each rank's count. The MoE
+aux losses are token means over equal row counts. With microbatches a
+rank's rows are its DP share of each global microbatch in turn
+(``sharding.batch_rows``), as the reference puts DP on each microbatch
+of the global batch, so anything nonlinear in a microbatch (the masked
+mean, MoE's load-balance term) sees the reference's rows. Every rank then
+holds the same reduced
 gradients (its shard of them), the AdamW update (each rank its ZeRO-1
 share) and the same params. The egress is computed from the reduced grads
 on rank 0 alone; with ``grads_int8`` on a TP mesh the first leaf's sample
@@ -58,8 +66,8 @@ from repro_torch.optim.optimizer import (AdamWConfig, NormPlan, Zero1,
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.train.sharding import (TPContext, counted_cuts, local_slice,
                                         local_specs, make_rules, mesh_axes,
-                                        shard_tree, shared_over_model, take,
-                                        unshard)
+                                        shard_batch, shard_tree,
+                                        shared_over_model, take, unshard)
 
 Tree = Any
 EGRESS = ("none", "diag", "grads_int8")
@@ -159,6 +167,13 @@ class TrainSetup:
             self.zero1 = Zero1(local, unstack_scan_specs(local, mcfg), mesh.dp,
                                self.rules)
 
+    def shard_batch(self, batch: dict) -> dict:
+        """This rank's rows of the global ``batch`` for this step
+        (``sharding.shard_batch`` with the config's microbatches)."""
+        if self.mesh is None:
+            return batch
+        return shard_batch(self.mesh, self.rules, batch, self.cfg.microbatches)
+
     @property
     def n_pods(self) -> int:
         return self.mesh.shape["pod"] if self.compress else 1
@@ -189,7 +204,16 @@ class TrainSetup:
         count and step 0, and with ``compress_pods`` this pod's zero
         residual (of the whole tree)."""
         dev = resolve_device(device)
-        params = self.model.init(seed, dev, self.mesh, self.rules)
+        return self._state(self.model.init(seed, dev, self.mesh, self.rules))
+
+    def abstract_state(self) -> dict:
+        """``init_state``'s state as meta tensors: this rank's params,
+        ZeRO-1 moment shares, count, step and residual, shapes and dtypes
+        alone (the dry run's arguments)."""
+        return self._state(self.model.abstract_params(self.mesh, self.rules))
+
+    def _state(self, params: Tree) -> dict:
+        dev = first_leaf(params).device
         opt = adamw_init(params)
         if self.zero1 is not None:
             opt = {"mu": self.zero1.local(opt["mu"]),
@@ -274,29 +298,43 @@ class TrainSetup:
         return local
 
     # -- the step -----------------------------------------------------------
-    def _value_and_grad(self, params: Tree, batch: dict):
+    def _value_and_grad(self, params: Tree, batch: dict, denom=None):
         live = [p.detach().requires_grad_() for p in tree_leaves(params)]
         loss, metrics = self.model.loss_fn(tree_unflatten(params, live), batch,
                                            xent_chunk=self.cfg.xent_chunk,
-                                           tp=self.tp)
+                                           tp=self.tp, denom=denom)
         grads = torch.autograd.grad(loss, live)
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 tree_unflatten(params, list(grads)))
 
-    def loss_and_grads(self, params: Tree, batch: dict):
+    def _denoms(self, batch: dict, group, n: int) -> Optional[torch.Tensor]:
+        """Each of the ``n`` microbatches' share of its global unmasked
+        count: the counts of this rank's rows summed over ``group`` (the
+        DP ranks), at least 1, over the group's size; None off a DP mesh
+        (the loss divides by its own count, bit for bit as before)."""
+        if group is None or group.size == 1:
+            return None
+        mask = batch["loss_mask"]
+        counts = mask.float().reshape(n, -1).sum(1)
+        return torch.clamp(group.all_reduce_sum(counts), min=1.0) / group.size
+
+    def loss_and_grads(self, params: Tree, batch: dict, denoms=None):
         """(loss, metrics, grads) of the batch; with microbatches, the batch
         split on its leading axis, grads summed in f32 as acc + g/n and the
-        loss and metrics averaged, in the reference's order."""
+        loss and metrics averaged, in the reference's order. ``denoms``:
+        each microbatch's masked-mean divisor (``_denoms``) or None."""
         n = self.cfg.microbatches
         if n == 1:
-            return self._value_and_grad(params, batch)
+            return self._value_and_grad(params, batch,
+                                        None if denoms is None else denoms[0])
         B = next(iter(batch.values())).shape[0]
         if B % n:
             raise ValueError(f"batch {B} is not a multiple of {n} microbatches")
         acc_l = acc_m = acc_g = None
         for i in range(n):
             mb = {k: v[i * (B // n):(i + 1) * (B // n)] for k, v in batch.items()}
-            l, m, g = self._value_and_grad(params, mb)
+            l, m, g = self._value_and_grad(params, mb,
+                                           None if denoms is None else denoms[i])
             g = [x.float().div_(n) for x in tree_leaves(g)]
             if acc_g is None:          # the reference starts from zeros
                 acc_g, acc_l = g, torch.zeros_like(l)
@@ -417,7 +455,9 @@ class TrainSetup:
         place). On a sharded mesh the ring takes the whole tree's flat, put
         together on every rank, and each rank keeps its cut."""
         mesh = self.mesh
-        loss, metrics, grads = self._value_and_grad(state["params"], batch)
+        denom = self._denoms(batch, mesh.groups["data"], 1)
+        loss, metrics, grads = self._value_and_grad(
+            state["params"], batch, None if denom is None else denom[0])
         leaves = self._sum_shared(tree_leaves(grads))
         del grads
         if not self.sharded:
@@ -446,7 +486,10 @@ class TrainSetup:
         if self.compress:
             loss, metrics, grads = self._compressed_grads(state, batch)
         else:
-            loss, metrics, grads = self.loss_and_grads(state["params"], batch)
+            denoms = (None if mesh is None else
+                      self._denoms(batch, mesh.dp, self.cfg.microbatches))
+            loss, metrics, grads = self.loss_and_grads(state["params"], batch,
+                                                       denoms)
             if mesh is not None:
                 leaves = self._sum_shared(tree_leaves(grads))
                 del grads
@@ -463,8 +506,8 @@ class TrainSetup:
 
     def step_fn(self) -> Callable:
         """train_step(state, batch) -> (state, metrics, egress); ``batch``
-        holds this rank's rows (``sharding.shard_batch``). The egress is {}
-        on every rank but rank 0."""
+        holds this rank's rows (``shard_batch``). The egress is {} on every
+        rank but rank 0."""
         cfg = self.cfg
         mesh = self.mesh
         egress_rank = mesh is None or mesh.rank == 0

@@ -26,8 +26,8 @@ STEP_CFG = dict(peak_lr=1e-2, warmup_steps=2, total_steps=10, egress="none")
 def smoke_config(arch="gemma2-27b", **kw):
     """The smoke config in f32, as the reference's distributed checks take
     it, with ``kw`` replaced."""
-    return dataclasses.replace(get_config(arch).smoke(), compute_dtype="float32",
-                               param_dtype="float32", **kw)
+    return dataclasses.replace(get_config(arch).smoke(), **{
+        "compute_dtype": "float32", "param_dtype": "float32", **kw})
 
 
 def global_batch(cfg, seed=1, batch=B, seq=S):
@@ -77,7 +77,8 @@ def train_steps(shape, axes, cfg_kw, train_kw, n_steps=2, seed=7):
     mesh = Mesh(shape, axes)
     setup = TrainSetup(Model(cfg), TrainConfig(**{**STEP_CFG, **train_kw}), mesh)
     state = setup.init_state(seed, "cpu")
-    batch = device_put_batch(global_batch(cfg), mesh, setup.rules, "cpu")
+    batch = device_put_batch(global_batch(cfg), mesh, setup.rules, "cpu",
+                             setup.cfg.microbatches)
     reduces = []
     inner = train_step_mod._pod_reduce
 
@@ -121,7 +122,8 @@ def save_after_a_step(shape, axes, cfg_kw, directory):
     mesh = Mesh(shape, axes)
     setup = TrainSetup(Model(cfg), TrainConfig(**STEP_CFG), mesh)
     state = setup.init_state(3, "cpu")
-    batch = device_put_batch(global_batch(cfg), mesh, setup.rules, "cpu")
+    batch = device_put_batch(global_batch(cfg), mesh, setup.rules, "cpu",
+                             setup.cfg.microbatches)
     step = setup.step_fn()
     for _ in range(2):
         state, _, _ = step(state, batch)
@@ -140,7 +142,8 @@ def whole_on_root(shape, cfg_kw, train_kw):
     mesh = Mesh(shape, ("pod", "data", "model"))
     setup = TrainSetup(Model(cfg), TrainConfig(**{**STEP_CFG, **train_kw}), mesh)
     state = setup.init_state(3, "cpu")
-    batch = device_put_batch(global_batch(cfg), mesh, setup.rules, "cpu")
+    batch = device_put_batch(global_batch(cfg), mesh, setup.rules, "cpu",
+                             setup.cfg.microbatches)
     step = setup.step_fn()
     for _ in range(2):
         state, _, _ = step(state, batch)
@@ -173,7 +176,8 @@ def supervised(shape, axes, directory, fail_at):
     setup = TrainSetup(Model(cfg), TrainConfig(**STEP_CFG), mesh)
     state = setup.init_state(5, "cpu")
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=B)
-    batches = (device_put_batch(b, mesh, setup.rules, "cpu")
+    batches = (device_put_batch(b, mesh, setup.rules, "cpu",
+                                             setup.cfg.microbatches)
                for b in SyntheticLM(dc).batches())
     ckpt = CheckpointManager(directory, layout=setup)
     sup = Supervisor(setup.step_fn(), ckpt, SupervisorConfig(ckpt_every=2))
@@ -274,7 +278,7 @@ def _tp_steps(mesh, arch, cfg_kw, train_kw, state, batch, n_steps=2):
     cfg = smoke_config(arch, **cfg_kw)
     setup = TrainSetup(Model(cfg), TrainConfig(**{**STEP_CFG, **train_kw}), mesh)
     st = setup.local_state(train_state_from_jax(state, cfg, "cpu"))
-    rows = device_put_batch(batch, mesh, setup.rules, "cpu")
+    rows = device_put_batch(batch, mesh, setup.rules, "cpu", setup.cfg.microbatches)
     step = setup.step_fn()
     metrics, snapshots, egress = [], [], []
     for _ in range(n_steps):
@@ -367,3 +371,27 @@ def _tp_restore(mesh, arch, cfg_kw, directory, batch=None):
 
 TP_JOBS = {"steps": _tp_steps, "collectives": _tp_collectives, "norm": _tp_norm,
            "save": _tp_save, "restore": _tp_restore}
+
+
+# -- the dry run's collectives against a real run's -----------------------------
+
+
+def collective_records(shape, axes, jobs):
+    """Each job (arch, cfg_kw, lowp) one train step at smoke size (B, S) on
+    this rank of a real mesh of ``shape``, under ``record_collectives``:
+    the step the dry run counts (``launch.dryrun.build_step``) on real
+    tensors. Returns each job's record."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import build_step
+    from repro_torch.launch.mesh import record_collectives
+    from repro_torch.models.layers import lowp_collectives
+    mesh = Mesh(shape, axes)
+    out = []
+    for job in jobs:
+        cfg = smoke_config(job["arch"], **job["cfg_kw"])
+        fn, args = build_step(cfg, ShapeConfig("smoke", S, B, "train"), mesh,
+                              device="cpu")
+        with lowp_collectives(job["lowp"]), record_collectives() as rec:
+            fn(*args)
+        out.append(rec)
+    return out

@@ -34,25 +34,42 @@ def np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def batch_for(arch, seed=1, cfg_kw=()):
+# unmasked tokens of each of the B 4 rows of an uneven loss mask: the DP
+# ranks' counts differ (96 against 26 at data 2), and so do those of each
+# rank's rows of the two microbatches (64, 32 and 19, 7)
+UNEVEN_COUNTS = (64, 32, 19, 7)
+
+
+def batch_for(arch, seed=1, cfg_kw=(), uneven=False):
+    """``SyntheticLM``'s batch; with ``uneven``, a loss mask whose rows keep
+    ``UNEVEN_COUNTS`` tokens each, at positions drawn from a seed."""
     cfg = dataclasses.replace(get_config(arch).smoke(), **dict(cfg_kw))
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=_torch_dist.S,
                     global_batch=_torch_dist.B, seed=seed, n_prefix=cfg.n_prefix,
                     d_model=cfg.d_model)
-    return next(SyntheticLM(dc).batches())
+    batch = next(SyntheticLM(dc).batches())
+    if uneven:
+        rng = np.random.default_rng(5)
+        mask = np.zeros_like(batch["loss_mask"])
+        for row, n in enumerate(UNEVEN_COUNTS):
+            mask[row, rng.permutation(_torch_dist.S)[:n]] = 1.0
+        batch["loss_mask"] = mask
+    return batch
 
 
 @functools.lru_cache(maxsize=None)
-def reference_run(arch, cfg_kw=(), n_steps=2):
-    """The reference's jitted one-device step, ``n_steps`` times from its
-    seeded state (PRNGKey 7) on ``batch_for(arch)``. Returns the initial state
-    (numpy), the batch, and each step's metrics, params and moments."""
+def reference_run(arch, cfg_kw=(), n_steps=2, train_kw=(), uneven=False):
+    """The reference's jitted one-device step (with ``train_kw``, e.g. its
+    microbatches), ``n_steps`` times from its seeded state (PRNGKey 7) on
+    ``batch_for(arch, uneven=uneven)``. Returns the initial state (numpy),
+    the batch, and each step's metrics, params and moments."""
     jcfg = dataclasses.replace(jax_config(arch).smoke(), **F32, **dict(cfg_kw))
     mesh = make_debug_mesh(1, 1)
-    ts = JaxTrainSetup(JaxModel(jcfg), mesh, JaxTrainConfig(**_torch_dist.STEP_CFG))
+    ts = JaxTrainSetup(JaxModel(jcfg), mesh, JaxTrainConfig(
+        **_torch_dist.STEP_CFG, **dict(train_kw)))
     st = ts.init_state(jax.random.PRNGKey(7))
     st0 = np_tree(st)
-    batch = batch_for(arch, cfg_kw=cfg_kw)
+    batch = batch_for(arch, cfg_kw=cfg_kw, uneven=uneven)
     rows = []
     with jax.set_mesh(mesh):
         step = jax.jit(ts.step_fn())
@@ -64,8 +81,10 @@ def reference_run(arch, cfg_kw=(), n_steps=2):
     return st0, batch, rows
 
 
-def steps_job(arch, cfg_kw=(), train_kw=None):
-    st0, batch, _ = reference_run(arch, tuple(cfg_kw))
+def steps_job(arch, cfg_kw=(), train_kw=None, uneven=False):
+    st0, batch, _ = reference_run(arch, tuple(cfg_kw),
+                                  train_kw=tuple((train_kw or {}).items()),
+                                  uneven=uneven)
     return {"kind": "steps", "arch": arch, "cfg_kw": dict(cfg_kw),
             "train_kw": train_kw or {}, "state": st0, "batch": batch}
 
@@ -96,9 +115,10 @@ def bit_equal(a, b):
         pa[k].dtype == pb[k].dtype and pa[k].tobytes() == pb[k].tobytes() for k in pa)
 
 
-def hold(arch, got, cfg_kw=()):
+def hold(arch, got, cfg_kw=(), train_kw=(), uneven=False):
     """Each rank's two steps against the reference's (module docstring)."""
-    _, _, want = reference_run(arch, tuple(cfg_kw))
+    _, _, want = reference_run(arch, tuple(cfg_kw), train_kw=tuple(train_kw),
+                               uneven=uneven)
     r0 = got[0]
     for i in range(2):
         w, g = want[i]["metrics"], r0["metrics"][i]

@@ -271,6 +271,49 @@ def test_dp_step_matches_one_device(shape, microbatches):
         assert g["metrics"] == got[0]["metrics"]
 
 
+# the DP repair cases: (arch, microbatches), each with the uneven loss mask
+DP_REPAIR = [("gemma2-27b", 1), ("gemma2-27b", 2),
+             ("llama4-maverick-400b-a17b", 1), ("llama4-maverick-400b-a17b", 2)]
+
+
+@pytest.fixture(scope="module")
+def dp_repair_at_1x2x1():
+    """Every DP repair case in one spawn of two ranks at (pod 1, data 2,
+    model 1)."""
+    import _torch_tp_ref as R
+    jobs = [R.steps_job(a, train_kw={"microbatches": n}, uneven=True)
+            for a, n in DP_REPAIR]
+    return run_ranks(_torch_dist.tp_jobs, 2, (1, 2, 1), AXES3, jobs)
+
+
+@pytest.mark.parametrize("arch,microbatches", DP_REPAIR)
+def test_dp_masked_mean_and_microbatch_rows_match_the_reference(
+        arch, microbatches, dp_repair_at_1x2x1):
+    """DP at data 2 with a loss mask whose unmasked counts differ between
+    the ranks and between the microbatches, against the reference's jitted
+    one-device step with the same microbatches, under its gates (loss 1e-5,
+    grad norm 1e-4, params at LR 0 1e-4; ``_torch_tp_ref.hold``). The
+    loss is the global (micro)batch's masked mean, not the mean of each
+    rank's; with microbatches a rank's rows are its share of each global
+    microbatch (rows 0, 1 make microbatch 0, not rows 0, 2), which the
+    masked mean and llama4's load-balance term both see."""
+    import _torch_tp_ref as R
+    got = [g[DP_REPAIR.index((arch, microbatches))] for g in dp_repair_at_1x2x1]
+    R.hold(arch, got, train_kw=(("microbatches", microbatches),), uneven=True)
+
+
+def test_microbatch_rows_are_each_ranks_share_of_each_microbatch():
+    """At data 2 and 2 microbatches of a batch of 8, rank 1 takes rows 2, 3
+    of microbatch 0 (rows 0-3) and 6, 7 of microbatch 1; one microbatch
+    (or one DP rank) keeps the contiguous slice."""
+    for d, want in ((0, [0, 1, 4, 5]), (1, [2, 3, 6, 7])):
+        m = _fake_mesh((1, 2, 1), AXES3, {"pod": 0, "data": d, "model": 0})
+        assert batch_rows(m, make_rules(m), 8, 2) == want
+        assert batch_rows(m, make_rules(m), 8) == slice(4 * d, 4 * d + 4)
+    one = _fake_mesh((1, 1, 2), AXES3)
+    assert batch_rows(one, make_rules(one), 8, 2) == slice(0, 8)
+
+
 @functools.lru_cache(maxsize=None)
 def _torch_dist_params0():
     cfg = _torch_dist.smoke_config(n_layers=4)

@@ -175,14 +175,23 @@ def test_kernel_rejects_what_it_does_not_take():
                             torch.zeros(1, 4, 2, 64), causal=True, window=3)
 
 
-def test_wrapper_has_no_fallback_off_the_cpu():
+def test_wrapper_has_no_fallback_off_the_cpu(monkeypatch):
     """A tensor that is not on the CPU goes to the kernel or raises; it is
-    never answered by the plain version."""
+    never answered by the plain version. A meta tensor (the dry run) takes
+    the kernel's own path, which gives the output's shape and launches
+    nothing; the kernel's launcher refuses a CPU tensor."""
+    def plain(*a, **k):
+        raise AssertionError("the plain version answered")
+    monkeypatch.setattr(ref, "attention_ref", plain)
     q = torch.zeros(1, 8, 4, 64, device="meta")
     kv = torch.zeros(1, 8, 2, 64, device="meta")
     before = LAUNCHES["flash_attention"]
+    o = ops.gqa_attention(q, kv, kv)
+    assert o.device.type == "meta" and o.shape == q.shape
+    assert LAUNCHES["flash_attention"] == before
     with pytest.raises(ValueError, match="CUDA"):
-        ops.gqa_attention(q, kv, kv)
+        kernel.flash_attention(torch.zeros(q.shape), torch.zeros(kv.shape),
+                               torch.zeros(kv.shape), scale=0.125)
     assert LAUNCHES["flash_attention"] == before
 
 

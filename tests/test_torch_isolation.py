@@ -56,6 +56,8 @@ def _port_modules() -> list[str]:
 
 def test_port_files_import_neither_jax_nor_repro():
     assert len(PORT_FILES) > 10
+    for name in ("dryrun.py", "op_analysis.py"):     # the dry run's modules
+        assert PORT / "launch" / name in PORT_FILES
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & set(FORBIDDEN))
            for f in PORT_FILES}
     assert not {f: r for f, r in bad.items() if r}

@@ -239,14 +239,22 @@ def test_model_axis_dividing_only_the_padded_heads():
     own padded heads {0,1}, {2,3}, {4,5}, {6,7}, so real heads 0-1, 2,
     3-4, 5, each reading its KV head; against the reference's one-device
     prefill and decode (its padded-MHA layout). Without the padding the
-    axis divides no head count and raises."""
+    axis divides no head count: the heads are split mid-head (no plan;
+    every rank gathers q, k, v and computes every head, as GSPMD cuts the
+    reference's flat projections), which serves the same logits; where
+    the axis does not divide the flat projections either, it raises."""
     cfg = dataclasses.replace(get_config("arctic-480b").smoke(), **PADDED)
     assert [head_plan(cfg, 4, r) for r in range(4)] == [
         (0, 2, 0, 1), (2, 3, 0, 1), (3, 5, 1, 2), (5, 6, 1, 2)]
+    unpadded = dataclasses.replace(cfg, pad_heads_to=0)
+    assert head_plan(unpadded, 4, 0) is None
     with pytest.raises(ValueError, match="divides neither"):
-        head_plan(dataclasses.replace(cfg, pad_heads_to=0), 4, 0)
-    job = _job("arctic-480b", 2, cfg_kw={**F32, **PADDED})
-    _hold(job, [g[0] for g in run_ranks(_torch_dist.serve_jobs, 4, (1, 4), [job])])
+        head_plan(unpadded, 5, 0)
+    jobs = [_job("arctic-480b", 2, cfg_kw={**F32, **PADDED}),
+            _job("arctic-480b", 2, cfg_kw={**F32, **PADDED, "pad_heads_to": 0})]
+    got = run_ranks(_torch_dist.serve_jobs, 4, (1, 4), jobs)
+    for i, job in enumerate(jobs):
+        _hold(job, [g[i] for g in got])
 
 
 def test_serve_on_a_mesh_gives_the_one_device_tokens():
