@@ -38,6 +38,7 @@ from repro_torch.models import kvcache
 from repro_torch.models.layers import (
     ParamSpec, dense, rms_norm, rope, row_dense, softcap,
 )
+from repro_torch.spans import span
 
 NEG_INF = -2.0e38
 
@@ -145,10 +146,12 @@ def attention(params: dict, x: torch.Tensor, *, cfg, kind: str,
     if cache is not None:
         if S != 1:
             raise ValueError(f"decode takes one token per sequence, got {S}")
-        new_cache = kvcache.cache_insert(cache, k, v, positions[:, 0], seq)
+        with span("kv"):
+            new_cache = kvcache.cache_insert(cache, k, v, positions[:, 0], seq)
     elif return_cache:
-        new_cache = kvcache.cache_from_prefill(k, v, positions, window=window,
-                                               max_len=cache_len, seq=seq)
+        with span("kv"):
+            new_cache = kvcache.cache_from_prefill(
+                k, v, positions, window=window, max_len=cache_len, seq=seq)
     else:
         new_cache = None
 
@@ -160,9 +163,10 @@ def attention(params: dict, x: torch.Tensor, *, cfg, kind: str,
         vc = new_cache["v"].reshape(B, T, Hkv, D)
         if kv_index is not None:
             kc, vc = kc[:, :, kv_index], vc[:, :, kv_index]
-        o = decode_attention(
-            q, kc, vc, pos=positions[:, 0], cache_positions=new_cache["pos"],
-            scale=scale, cap=cfg.attn_softcap, window=window, group=seq_group)
+        with span("attn.decode"):
+            o = decode_attention(
+                q, kc, vc, pos=positions[:, 0], cache_positions=new_cache["pos"],
+                scale=scale, cap=cfg.attn_softcap, window=window, group=seq_group)
     else:
         # the prefix-LM prefix binds on every prefill but a local layer's,
         # with or without prefix embeddings (the reference's rule); decode
@@ -171,9 +175,10 @@ def attention(params: dict, x: torch.Tensor, *, cfg, kind: str,
                   else 0)
         k_att, v_att = ((k, v) if kv_index is None else
                         (k[:, :, kv_index], v[:, :, kv_index]))
-        o = gqa_attention(q, k_att, v_att, scale=scale,
-                          softcap=cfg.attn_softcap, causal=True,
-                          window=window, prefix=prefix)
+        with span("attn.flash"):
+            o = gqa_attention(q, k_att, v_att, scale=scale,
+                              softcap=cfg.attn_softcap, causal=True,
+                              window=window, prefix=prefix)
     o = o.reshape(B, S, Hq * D)
     if tp is not None:
         o = tp.own_columns(o)

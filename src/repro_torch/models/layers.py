@@ -29,6 +29,8 @@ from typing import Any, Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.spans import span
+
 Tree = Any
 
 
@@ -147,11 +149,12 @@ def unstack(tree: Tree, n: int) -> list:
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
              plus_one: bool = False) -> torch.Tensor:
-    x32 = x.float()
-    var = x32.square().mean(-1, keepdim=True)
-    y = x32 * torch.rsqrt(var + eps)
-    s = (1.0 + scale.float()) if plus_one else scale.float()
-    return (y * s).to(x.dtype)
+    with span("norm"):
+        x32 = x.float()
+        var = x32.square().mean(-1, keepdim=True)
+        y = x32 * torch.rsqrt(var + eps)
+        s = (1.0 + scale.float()) if plus_one else scale.float()
+        return (y * s).to(x.dtype)
 
 
 def rms_norm_spec(dim: int, plus_one: bool = False) -> ParamSpec:
@@ -160,7 +163,10 @@ def rms_norm_spec(dim: int, plus_one: bool = False) -> ParamSpec:
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return x @ w.to(x.dtype)
+    """A product with a weight matrix (span ``gemm``, as every such
+    product: ``row_dense``'s f32 one, ``unembed``'s)."""
+    with span("gemm"):
+        return x @ w.to(x.dtype)
 
 
 _LOWP = [False]   # set by lowp_collectives(); read where a partial is made
@@ -194,7 +200,9 @@ def row_dense(x: torch.Tensor, w: torch.Tensor, tp=None,
         return dense(x, w)
     if lowp():
         return tp.reduce(dense(x, w), x.dtype, sublayer_out, wide=False)
-    return tp.reduce(x.float() @ w.float(), x.dtype, sublayer_out=sublayer_out)
+    with span("gemm"):
+        part = x.float() @ w.float()
+    return tp.reduce(part, x.dtype, sublayer_out=sublayer_out)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -223,12 +231,13 @@ def mlp_specs(d_model: int, d_ff: int, glu: bool, pdt) -> dict[str, ParamSpec]:
 
 def mlp(params: dict, x: torch.Tensor, act: str, tp=None) -> torch.Tensor:
     """``wi``/``wg`` column-parallel, ``wo`` row-parallel under ``tp``."""
-    if tp is not None:
-        x = tp.to_model(x)
-    a = ACTS[act](dense(x, params["wi"]))
-    if "wg" in params:
-        a = a * dense(x, params["wg"])
-    return row_dense(a, params["wo"], tp)
+    with span("mlp"):
+        if tp is not None:
+            x = tp.to_model(x)
+        a = ACTS[act](dense(x, params["wi"]))
+        if "wg" in params:
+            a = a * dense(x, params["wg"])
+        return row_dense(a, params["wo"], tp)
 
 
 # -- RoPE -------------------------------------------------------------------
@@ -236,14 +245,15 @@ def mlp(params: dict, x: torch.Tensor, act: str, tp=None) -> torch.Tensor:
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (B, S, H, D); positions: (B, S) int."""
-    half = x.shape[-1] // 2
-    freq = theta ** (-torch.arange(half, dtype=torch.float32,
-                                   device=x.device) / half)
-    ang = positions[..., None].float() * freq                  # (B,S,half)
-    cos, sin = ang.cos()[..., None, :], ang.sin()[..., None, :]
-    x1, x2 = x[..., :half].float(), x[..., half:].float()
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
-                     dim=-1).to(x.dtype)
+    with span("rope"):
+        half = x.shape[-1] // 2
+        freq = theta ** (-torch.arange(half, dtype=torch.float32,
+                                       device=x.device) / half)
+        ang = positions[..., None].float() * freq              # (B,S,half)
+        cos, sin = ang.cos()[..., None, :], ang.sin()[..., None, :]
+        x1, x2 = x[..., :half].float(), x[..., half:].float()
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                         dim=-1).to(x.dtype)
 
 
 # -- Embedding --------------------------------------------------------------
@@ -293,5 +303,6 @@ def unembed(params: dict, x: torch.Tensor, tie: bool, tp=None,
     w = params["table"].T if tie else params["head"]
     if tp is not None:
         x = tp.to_model(x)
-    lg = x @ w.to(x.dtype)
+    with span("gemm"):
+        lg = x @ w.to(x.dtype)
     return lg if tp is None or not gather else tp.gather(lg)

@@ -26,6 +26,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (abstract_params, init_params, softcap,
                                       to_dtype, unembed)
+from repro_torch.spans import span
 
 Tree = Any
 
@@ -150,21 +151,23 @@ class Model:
         ``train.sharding.TPContext``) ``params`` and the rows are this
         rank's, the cache comes out as this rank's share, and the logits
         are whole on every rank."""
-        hidden, _, cache = tfm.apply_transformer(
-            params, tokens, cfg=self.cfg, prefix_embed=prefix_embed,
-            return_cache=True, cache_len=max_len, tp=tp)
-        logits = tfm.logits_from_hidden(params, hidden[:, -1:], self.cfg, tp)
-        return logits[:, 0], cache
+        with span("prefill"):
+            hidden, _, cache = tfm.apply_transformer(
+                params, tokens, cfg=self.cfg, prefix_embed=prefix_embed,
+                return_cache=True, cache_len=max_len, tp=tp)
+            logits = tfm.logits_from_hidden(params, hidden[:, -1:], self.cfg, tp)
+            return logits[:, 0], cache
 
     def decode_step(self, params: Tree, tokens: torch.Tensor,
                     pos: torch.Tensor, cache: Tree, tp=None):
         """tokens: (B,1); pos: (B,). Returns (logits (B,V), cache), the
         cache updated in place."""
-        hidden, _, cache = tfm.apply_transformer(
-            params, tokens, cfg=self.cfg, positions=pos[:, None], cache=cache,
-            tp=tp)
-        logits = tfm.logits_from_hidden(params, hidden, self.cfg, tp)
-        return logits[:, 0], cache
+        with span("decode"):
+            hidden, _, cache = tfm.apply_transformer(
+                params, tokens, cfg=self.cfg, positions=pos[:, None],
+                cache=cache, tp=tp)
+            logits = tfm.logits_from_hidden(params, hidden, self.cfg, tp)
+            return logits[:, 0], cache
 
 
 def _xent_chunk(embed_params: dict, h: torch.Tensor, t: torch.Tensor,

@@ -47,6 +47,7 @@ from repro_torch.models.layers import (
     embed, embed_specs, mlp, mlp_specs, rms_norm, rms_norm_spec, softcap,
     stack_specs, to_dtype, tree_map, unembed, unstack,
 )
+from repro_torch.spans import span
 
 
 # the MoE aux losses, summed over the moe layers (0 without any)
@@ -162,10 +163,11 @@ def apply_block(kind: str, p: dict, x: torch.Tensor, *, cfg,
         x = x + mlp(p["mlp"], rms_norm(x, p["ln2"], eps, plus), cfg.mlp_act,
                     tp)
         return x, {}, new_cache
-    a_out, new_cache = attn_lib.attention(
-        p["attn"], h, cfg=cfg, kind="global" if kind == "moe" else kind,
-        positions=positions, cache=cache, return_cache=return_cache,
-        cache_len=cache_len, tp=tp)
+    with span("attn"):
+        a_out, new_cache = attn_lib.attention(
+            p["attn"], h, cfg=cfg, kind="global" if kind == "moe" else kind,
+            positions=positions, cache=cache, return_cache=return_cache,
+            cache_len=cache_len, tp=tp)
     if cfg.post_norms:
         a_out = rms_norm(a_out, p["ln1_post"], eps, plus)
     x = x + a_out
@@ -226,9 +228,10 @@ def apply_stack(params: dict, x: torch.Tensor, *, cfg,
         "rem": {}}
 
     def block(kind, p, x, c_in):
-        return apply_block(kind, p, x, cfg=cfg, positions=positions,
-                           cache=c_in, return_cache=return_cache,
-                           cache_len=cache_len, tp=tp)
+        with span("block"):
+            return apply_block(kind, p, x, cfg=cfg, positions=positions,
+                               cache=c_in, return_cache=return_cache,
+                               cache_len=cache_len, tp=tp)
 
     remat = (cfg.remat != "none" and torch.is_grad_enabled()
              and not use_cache and not return_cache)
