@@ -39,12 +39,21 @@ Phases, each of which makes the script exit non-zero when it fails:
      layer's own input, and is held to the scan's per-element limit there;
      that run also reads the residual stream after every layer. A last
      run of that cell, its scan outputs nudged by one bf16 step in a small
-     share, reads how far its logits gate lets a kernel's rounding stray;
+     share, reads how far its logits gate lets a kernel's rounding stray.
+     Every cell's plain run (phase 10's too) decodes through the plain
+     decode attention, the decode kernel beside it on each attention
+     layer's served q and caches, held to ``decode_error_limit`` there;
+     the first run must launch the decode kernel once an attention layer a
+     decode step;
   5. timing: each kernel, checked once more against its plain version
      (flash attention also by the mask probe, local and global), then timed
      with its plain version, its bound and the library call that computes
      the same function (where there is one), at the shapes the serve path
-     gives it;
+     gives it; (5b) the decode-attention kernel at ``DECODE_SHAPES`` (every
+     served cell's decode, the qwen2-72b.batch-decode cell's layer and a
+     32k chat's row) against its plain version, at the launcher's split of
+     the slot axis and at one split, each timed beside its plain version,
+     its bound and scaled_dot_product_attention with the mask;
   6. in transit: the paper's producer path at its HPC4e mesh (201x501x501,
      50,451,201 float32 values a step). ``SeismicField`` makes each step on
      the card and the port's ``InTransitSink`` stages it through the port's
@@ -392,8 +401,8 @@ CELLS = (SERVE, SERVE_MAMBA)
 # phase 10: one cell of each layer kind the first cells do not serve, at
 # published widths, bf16 compute, random weights from seed 0. Their flash
 # launches a prefill are the attention layers of each config: 12 (the local
-# layers of 12 R,R,A periods and 2 R), 2 (dense, moe) and 18; decode
-# attention is plain, so it launches none.
+# layers of 12 R,R,A periods and 2 R), 2 (dense, moe) and 18; the decode
+# kernel's launches each decode step are the same counts.
 SERVE_RGLRU = dict(arch="recurrentgemma-9b", batch=4, prompt_len=4600,
                    new_tokens=32, n_layers=38, seed=0, kernel="flash_attention",
                    logits_gate=False,
@@ -425,6 +434,24 @@ SERVE_PREFIX = dict(arch="paligemma-3b", batch=4, prompt_len=4344, n_prefix=256,
                             "layout); the prefix embeddings are seeded normal "
                             "values in bf16, not a vision tower's")
 ARCH_CELLS = (SERVE_RGLRU, SERVE_MOE, SERVE_PREFIX)
+# phase 5b: the decode-attention kernel at the main path's decode shapes,
+# bf16: each served cell's attention decode at its last step (4 rows at
+# position 4630, caches of 4632 slots or a local layer's ring), the
+# qwen2-72b.batch-decode cell's layer (8 groups of 32 rows at staggered
+# positions, as the cell holds them) and one row at the end of a 32k chat
+# at qwen2-72b's widths (the dry run's decode_32k length)
+# name: (B, T, Hq, Hkv, D, cap, window, the rows' positions)
+DECODE_SHAPES = {
+    "gemma2-27b global": (4, 4632, 32, 16, 128, 50.0, 0, [4630] * 4),
+    "gemma2-27b local": (4, 4096, 32, 16, 128, 50.0, 4096, [4630] * 4),
+    "recurrentgemma-9b local": (4, 2048, 16, 1, 256, 0.0, 2048, [4630] * 4),
+    "llama4-maverick": (4, 4632, 40, 8, 128, 0.0, 0, [4630] * 4),
+    "paligemma-3b": (4, 4632, 8, 1, 256, 0.0, 0, [4630] * 4),
+    "qwen2-72b batch decode": (256, 2304, 64, 8, 128, 0.0, 0,
+                               [256 + (2 * g + 1) * 128 + i
+                                for g in range(8) for i in range(32)]),
+    "qwen2-72b 32k chat": (1, 32768, 64, 8, 128, 0.0, 0, [32767]),
+}
 # the training cell: gemma2-27b at published widths, two layers (one
 # local/global period, both masks bind), 4 steps
 TRAIN = dict(arch="gemma2-27b", n_layers=2, global_batch=2, seq_len=4600,
@@ -609,11 +636,101 @@ def cell_config(cell: dict):
 def prefill_launches(cfg) -> dict:
     """Each kernel's launches in one prefill of the model: the flash kernel
     once an attention layer (a moe layer's attention too), the scan once a
-    mamba layer, no pack."""
+    mamba layer, no decode attention, no pack."""
     kinds = cfg.layer_kinds
-    return {"flash_attention": sum(k in ("dense", "local", "global", "moe")
+    return {"decode_attention": 0,
+            "flash_attention": sum(k in ("dense", "local", "global", "moe")
                                    for k in kinds),
             "ssm_scan": sum(k == "mamba" for k in kinds), "staging_pack": 0}
+
+
+def serve_launches(cfg, new_tokens: int) -> dict:
+    """Each kernel's launches in one ``serve`` of ``new_tokens`` tokens: the
+    prefill's, and the decode-attention kernel once an attention layer in
+    each of the new_tokens - 1 decode steps."""
+    want = prefill_launches(cfg)
+    want["decode_attention"] = (new_tokens - 1) * want["flash_attention"]
+    return want
+
+
+def decode_error_limit(v) -> float:
+    """The decode kernel against its plain version on the same inputs, per
+    element: bf16 2**-7 max|v| (one rounding of p and one of o at another
+    place than the plain version's), f32 1e-5 max|v| (the order of the
+    sums)."""
+    import torch
+    rel = 2.0 ** -7 if v.dtype == torch.bfloat16 else 1e-5
+    return rel * float(v.float().abs().max())
+
+
+def decode_attention_on_the_card(dev, time_ms) -> dict:
+    """Phase 5b: the decode-attention kernel at ``DECODE_SHAPES`` in bf16,
+    each row's cache written as the program writes it (position p at slot
+    p % T, nothing past the row's position), against its plain version on
+    the same inputs within ``decode_error_limit`` (fails on a miss), at the
+    launcher's split of the slot axis and at one split; then each timed
+    (``time_ms``) beside its plain version, its bound (the bytes of K and V
+    up to each row's position, the slots' positions, q and o, once, over
+    PEAK_BYTES) and scaled_dot_product_attention with the boolean mask
+    (which has no softcap). Returns a row a shape."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+    for name, (B, T, Hq, Hkv, D, cap, window, pos) in DECODE_SHAPES.items():
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        q = randn(B, 1, Hq, D)
+        k, v = (randn(B, T, Hkv * D).view(B, T, Hkv, D) for _ in range(2))
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        t = torch.arange(T, device=dev, dtype=torch.int32)[None]
+        cp = torch.where(t <= p[:, None], p[:, None] - (p[:, None] - t) % T, -1)
+        cp = cp.to(torch.int32)
+        kw = dict(pos=p, cache_positions=cp, scale=D ** -0.5, cap=cap, window=window)
+        want = ref.decode_attention(q, k, v, **kw).float()
+        limit = decode_error_limit(v)
+        splits, chunk = kernel._card_plan(q.device, B, T, Hkv, Hq // Hkv, D, q.dtype)
+        one = torch.empty_like(q)
+
+        def one_split():
+            kernel._launch(q, k, v, p, cp, one, scale=kw["scale"], cap=cap,
+                           window=window, seq_index=0, partial=False, splits=1,
+                           chunk=-(-T // kernel.ROUND) * kernel.ROUND)
+        one_split()
+        err = float((kernel.decode_attention(q, k, v, **kw).float() - want).abs().max())
+        err_one = float((one.float() - want).abs().max())
+        log(f"decode_attention {name} (B {B}, T {T}, GQA {Hq}/{Hkv}, D {D}, cap "
+            f"{cap}, window {window}): max|err| {err:.3g} at {splits} split(s) of "
+            f"{chunk} slots, {err_one:.3g} at one split (limit {limit:.3g})")
+        if not (err <= limit and err_one <= limit):
+            fail(f"decode_attention at {name} disagrees with its plain version")
+        visible = (cp >= 0) & (cp <= p[:, None])
+        if window:
+            visible &= (p[:, None] - cp) < window
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        n = int(ref.slot_bound(p, T).sum())
+        row = dict(B=B, T=T, Hq=Hq, Hkv=Hkv, D=D, cap=cap, window=window,
+                   max_abs_err=err, max_abs_err_one_split=err_one, limit=limit,
+                   splits=splits, chunk=chunk,
+                   ms=time_ms(lambda: kernel.decode_attention(q, k, v, **kw), reps=20),
+                   ms_one_split=time_ms(one_split, reps=20),
+                   plain_ms=time_ms(lambda: ref.decode_attention(q, k, v, **kw)),
+                   bound_ms=(n * (2 * Hkv * D * 2 + 4) + 2 * B * Hq * D * 2)
+                   / PEAK_BYTES * 1e3,
+                   library_ms=time_ms(lambda: sdpa(
+                       qt, kt, vt, attn_mask=visible[:, None, None],
+                       scale=kw["scale"], enable_gqa=True), reps=20))
+        log(f"time decode_attention {name}: kernel {row['ms']:.4f} ms ({splits} "
+            f"split(s)), one split {row['ms_one_split']:.4f} ms, plain "
+            f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms (bytes), "
+            f"scaled_dot_product_attention (mask, no softcap) "
+            f"{row['library_ms']:.4f} ms")
+        rows[name] = row
+        del q, k, v, cp, want, one, visible, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
 
 
 def attention_bound_ms(B, S, Hq, Hkv, D, causal, window, dtype,
@@ -893,7 +1010,8 @@ def transports_from_the_card(dev, mesh: dict, mem_capacity: int,
         return r
 
     def packs(n: int) -> dict:
-        return {"flash_attention": 0, "ssm_scan": 0, "staging_pack": n}
+        return {"decode_attention": 0, "flash_attention": 0, "ssm_scan": 0,
+                "staging_pack": n}
 
     out = {}
     # -- 9a. the paper's Fig 6 -------------------------------------------------
@@ -1018,7 +1136,8 @@ def transports_from_the_card(dev, mesh: dict, mem_capacity: int,
     what = "9e launch.train " + " ".join(TRAIN_FLAGS)
     cfg = get_config("gemma2-27b").smoke()
     n_steps = int(TRAIN_FLAGS[TRAIN_FLAGS.index("--steps") + 1])
-    want = {"flash_attention": cfg.n_layers * TrainConfig().microbatches
+    want = {"decode_attention": 0,
+            "flash_attention": cfg.n_layers * TrainConfig().microbatches
             * (1 if cfg.remat == "none" else 2) * n_steps,
             "ssm_scan": 0, "staging_pack": n_steps}
     reset_launches()
@@ -1431,7 +1550,8 @@ def data_parallel_on_the_card(card: str, disk_dir: Path) -> dict:
         readings["param_rel_last"] = [worst, last[worst]]
         ranks_equal = all(same_bits(s["params"], t["params"])
                           for r in got[1:] for s, t in zip(r["steps"], r0["steps"]))
-        want_launches = {"flash_attention": dp_check["n_layers"] * dp_check["steps"],
+        want_launches = {"decode_attention": 0,
+                         "flash_attention": dp_check["n_layers"] * dp_check["steps"],
                          "ssm_scan": 0, "staging_pack": 0}
         row = {"gates": gates, "readings": readings, "ranks_params_bit_equal": ranks_equal,
                "step_ms": [[s["step_ms"] for s in r["steps"]] for r in got],
@@ -1459,7 +1579,7 @@ def data_parallel_on_the_card(card: str, disk_dir: Path) -> dict:
     pods = train_dp["pods"]
     got = run_ranks(dp_full_width, pods, pods, str(disk_dir))
     cfg = cell_config(train_dp)
-    want_step = [{"flash_attention": cfg.n_layers * 2, "ssm_scan": 0,
+    want_step = [{"decode_attention": 0, "flash_attention": cfg.n_layers * 2, "ssm_scan": 0,
                   "staging_pack": 2 + (r == 0)} for r in range(pods)]
     n_steps = train_dp["steps"]
     # the wire a rank a step: n - 1 hops of the reduce-scatter and n - 1
@@ -1525,7 +1645,7 @@ def data_parallel_on_the_card(card: str, disk_dir: Path) -> dict:
     steps = int(DP_LAUNCHER_FLAGS[DP_LAUNCHER_FLAGS.index("--steps") + 1])
     from repro_torch.configs import get_config
     smoke = get_config("gemma2-27b").smoke()
-    want = [{"flash_attention": smoke.n_layers * steps, "ssm_scan": 0,
+    want = [{"decode_attention": 0, "flash_attention": smoke.n_layers * steps, "ssm_scan": 0,
              "staging_pack": steps * (2 + (r == 0))} for r in range(4)]
     losses = [m["loss"] for m in res["metrics"]]
     launcher = {"seconds": time.perf_counter() - t0, "loss_first": losses[0],
@@ -1729,7 +1849,7 @@ def serve_on_a_mesh(card: str, dev) -> dict:
         rel = _logits_rel(want[i], got[0][i])
         launches = [g[i]["launches"] for g in got]
         widths = [g[i]["scan_widths"] for g in got]
-        want_l = prefill_launches(k)
+        want_l = serve_launches(k, TP_KIND_SERVE["new_tokens"])
         kinds[k.name] = {"logits_rel": rel, "launches": launches, "scan_widths": widths}
         di_half = k.d_inner // 2
         if not (rel["prefill"] < TP_LOGITS_REL and rel["decode_max"] < TP_LOGITS_REL
@@ -1747,7 +1867,8 @@ def serve_on_a_mesh(card: str, dev) -> dict:
     from repro_torch.launch.serve import main as serve_main
     t0 = time.perf_counter()
     res = serve_main(SERVE_CLI_FLAGS)
-    want_l = prefill_launches(get_config("gemma2-27b").smoke())
+    # the launcher's default of 32 new tokens
+    want_l = serve_launches(get_config("gemma2-27b").smoke(), 32)
     d = {"flags": SERVE_CLI_FLAGS, "tokens_shape": list(res["tokens"].shape),
          "launches_by_rank": res["launches_by_rank"],
          "peak_mem_gb_by_rank": res["peak_mem_gb_by_rank"],
@@ -2222,7 +2343,8 @@ def tp_train_on_the_card(card: str, device: str = "cuda",
     shutil.rmtree(ref_dir, ignore_errors=True)
     cfg = cell_config(cell)
     n_steps = cell["steps"]
-    want_step = [{"flash_attention": (cfg.n_layers * 2 if on_card else 0), "ssm_scan": 0,
+    want_step = [{"decode_attention": 0,
+                  "flash_attention": (cfg.n_layers * 2 if on_card else 0), "ssm_scan": 0,
                   "staging_pack": int(on_card and r == 0)} for r in range(len(got))]
     bad = []
     s1, o1 = got[0]["steps"][0], one_b["steps"][0]
@@ -2311,7 +2433,8 @@ def tp_train_on_the_card(card: str, device: str = "cuda",
     res = train_main(flags)
     n = int(TP_LAUNCHER_FLAGS[TP_LAUNCHER_FLAGS.index("--steps") + 1])
     sm = get_config("gemma2-27b").smoke()
-    want_l = [{"flash_attention": sm.n_layers * n if on_card else 0, "ssm_scan": 0,
+    want_l = [{"decode_attention": 0,
+               "flash_attention": sm.n_layers * n if on_card else 0, "ssm_scan": 0,
                "staging_pack": n * (2 + (r == 0)) if on_card else 0} for r in range(4)]
     rows_w = gc.error_state(Model(sm).param_specs(), 2)[0]
     want_wire = n * 2 * (2 - 1) * (rows_w // 2) * (gc.QBLOCK + 4)
@@ -2490,9 +2613,12 @@ def dryrun_on_the_card(card: str, out_dir: Path) -> dict:
              (c["arch"], c["n_layers"], "prefill", *c["prefill"]),
              (c["mamba"], c["mamba_layers"], "prefill", *c["prefill"])]
     names = ["gemma3-4b train", "gemma3-4b prefill", "falcon-mamba-7b prefill"]
-    want_launches = [{"flash_attention": 2 * c["n_layers"], "ssm_scan": 0, "staging_pack": 0},
-                     {"flash_attention": c["n_layers"], "ssm_scan": 0, "staging_pack": 0},
-                     {"flash_attention": 0, "ssm_scan": c["mamba_layers"], "staging_pack": 0}]
+    want_launches = [{"decode_attention": 0, "flash_attention": 2 * c["n_layers"],
+                      "ssm_scan": 0, "staging_pack": 0},
+                     {"decode_attention": 0, "flash_attention": c["n_layers"],
+                      "ssm_scan": 0, "staging_pack": 0},
+                     {"decode_attention": 0, "flash_attention": 0,
+                      "ssm_scan": c["mamba_layers"], "staging_pack": 0}]
     got = run_ranks(dryrun_counts_rank, 1, cases)[0]
     res["counts"] = {}
     matmuls = {"aten.mm", "aten.addmm", "aten.bmm", "aten.baddbmm", "aten.convolution"}
@@ -2621,6 +2747,8 @@ def main() -> None:
     from repro_torch.codec.int8block import Int8BlockCodec
     from repro_torch.data.seismic import SeismicConfig, SeismicField
     from repro_torch.kernels import LAUNCHES, build, reset_launches
+    from repro_torch.kernels.decode_attention import kernel as decode_kernel
+    from repro_torch.kernels.decode_attention import ref as decode_ref
     from repro_torch.kernels.flash_attention import kernel as attn_kernel
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention import ref as attn_ref
@@ -3040,6 +3168,26 @@ def main() -> None:
                                     err_over_limit=ratio, mean_abs_ref=mean_ref))
             return o_p
 
+    class DecodeLockstep:
+        """Serves the plain decode attention and runs the kernel beside it
+        on each call's q and caches (each attention layer's decode step),
+        holding the kernel to decode_error_limit on what the model really
+        decodes. Its kernel launches are comparisons."""
+
+        def __init__(self):
+            self.err_over_limit = []
+
+        def attention(self, q, k_cache, v_cache, *, group=None, **kw):
+            if group is not None:
+                fail("the decode lockstep serves one device, not a sequence group")
+            o_p = decode_ref.decode_attention(q, k_cache, v_cache, **kw)
+            o_k = decode_kernel.decode_attention(q, k_cache, v_cache, **kw)
+            err = float((o_k.float() - o_p.float()).abs().max())
+            self.err_over_limit.append(err / decode_error_limit(v_cache))
+            return o_p
+
+    decode_launches, decode_lockstep = {}, {}
+
     def serve_cell(cell, plain_swap, plain_launches=None, probe=None,
                    first_swap=None) -> tuple[dict, dict]:
         """Serve the cell through its kernel (inside ``first_swap``, if
@@ -3067,10 +3215,11 @@ def main() -> None:
             first = serve(cfg, **kw)
         launches = dict(LAUNCHES)
         log(f"serve launches: {launches}")
-        want = prefill_launches(cfg)
+        want = serve_launches(cfg, cell["new_tokens"])
         if launches != want:
             fail(f"{cfg.name} serve path launched {launches}, want {want} "
-                 f"(one {name} per layer's prefill)")
+                 f"(one {name} per layer's prefill, one decode attention per "
+                 f"attention layer's decode step)")
         params, prompts = first["params"], first["prompts"]
         B, N, V = cell["batch"], cell["new_tokens"], cfg.vocab_size
         lg = first["prefill_logits"]
@@ -3080,12 +3229,27 @@ def main() -> None:
         if toks.shape != (B, N) or int(toks.min()) < 0 or int(toks.max()) >= V:
             fail(f"generated tokens {tuple(toks.shape)} out of range")
 
-        # the same model, params and prompts through the kernel's plain version
-        with plain_swap:
+        # the same model, params and prompts through the kernel's plain
+        # version and the plain decode attention, the decode kernel in
+        # lockstep beside it
+        dlock = DecodeLockstep()
+        with plain_swap, swapped(attention_mod, "decode_attention", dlock.attention):
             reset_launches()
             plain = serve(cfg, **kw, params=params, prompts=prompts)
-        if LAUNCHES != (plain_launches or {k: 0 for k in launches}):
-            fail(f"the plain run launched {dict(LAUNCHES)}")
+        plain_want = {**(plain_launches or {k: 0 for k in launches}),
+                      "decode_attention": want["decode_attention"]}
+        if LAUNCHES != plain_want:
+            fail(f"the plain run launched {dict(LAUNCHES)}, want {plain_want}")
+        ratios = dlock.err_over_limit
+        log(f"decode lockstep ({cfg.name}, the kernel on each attention layer's "
+            f"served q and caches, {len(ratios)} calls): max |err|/limit "
+            f"{max(ratios, default=0.0):.3g} (limit 1)")
+        if len(ratios) != want["decode_attention"] or not all(r <= 1 for r in ratios):
+            fail(f"decode_attention disagrees with its plain version on a served "
+                 f"{cfg.name} decode step ({len(ratios)} calls seen, want "
+                 f"{want['decode_attention']})")
+        decode_launches[cfg.name] = launches["decode_attention"]
+        decode_lockstep[cfg.name] = max(ratios, default=0.0)
         ref_lg = plain["prefill_logits"].float()
         logit_err = float((lg.float() - ref_lg).abs().max())
         logit_mean = float(ref_lg.abs().mean())
@@ -3129,7 +3293,8 @@ def main() -> None:
     attn_lockstep = AttentionLockstep()
     serve_stats[SERVE["arch"]], fa_launches = serve_cell(
         SERVE, swapped(attention_mod, "gqa_attention", attn_lockstep.attention),
-        {"flash_attention": gcfg.n_layers, "ssm_scan": 0, "staging_pack": 0})
+        {"decode_attention": 0, "flash_attention": gcfg.n_layers, "ssm_scan": 0,
+         "staging_pack": 0})
     torch.cuda.empty_cache()
     att = attn_lockstep.layers
     log("lockstep (gemma2-27b prefill, the kernel on each layer's served q, k, v): "
@@ -3209,7 +3374,8 @@ def main() -> None:
     lockstep = Lockstep()
     serve_stats[SERVE_MAMBA["arch"]], scan_launches = serve_cell(
         SERVE_MAMBA, lockstep.swap(),
-        {"flash_attention": 0, "ssm_scan": mcfg.n_layers, "staging_pack": 0},
+        {"decode_attention": 0, "flash_attention": 0, "ssm_scan": mcfg.n_layers,
+         "staging_pack": 0},
         nudge_probe)
     torch.cuda.empty_cache()
     steps = lockstep.layers
@@ -3246,6 +3412,10 @@ def main() -> None:
         f"({scan_bound_by}; {json.dumps(scan_detail)})")
     del sin, y_out, h_out
     torch.cuda.empty_cache()
+
+    # -- 5b. the decode-attention kernel at the main path's decode shapes -------
+    decode_shapes = decode_attention_on_the_card(dev, time_ms)
+    log(f"decode attention done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 6. in transit: the paper's producer path at its mesh --------------------
     from repro_torch.analysis import AnalysisSession, analyzers, tar
@@ -3564,7 +3734,8 @@ def main() -> None:
     tbatches = [batch_to_device(next(data), dev) for _ in range(TRAIN["steps"])]
     torch.cuda.reset_peak_memory_stats()
     tstate = tsetup.init_state(TRAIN["seed"], dev)
-    want_step = {"flash_attention": tcfg.n_layers * TRAIN["microbatches"] * 2,
+    want_step = {"decode_attention": 0,
+                 "flash_attention": tcfg.n_layers * TRAIN["microbatches"] * 2,
                  "ssm_scan": 0, "staging_pack": 1}
 
     # step 1 against the plain attention path. Step 0's LR is 0, so step 1
@@ -3710,7 +3881,8 @@ def main() -> None:
     finally:
         sys.argv = argv
     n_layers_smoke = ex["cfg"].n_layers
-    want_rec = {"flash_attention": n_layers_smoke * RECOVERY_STEPS, "ssm_scan": 0,
+    want_rec = {"decode_attention": 0,
+                "flash_attention": n_layers_smoke * RECOVERY_STEPS, "ssm_scan": 0,
                 "staging_pack": RECOVERY_STEPS}
     rec = {"steps": RECOVERY_STEPS, "seconds": recovery_s,
            "restarts": ex["sup"].restarts, "loss_first": ex["losses"][0],
@@ -4095,6 +4267,23 @@ def main() -> None:
         "library_call_retile": "x.view(ni,TR,nj,TC).permute(0,2,1,3).reshape(ni*nj,-1).clone()",
         "ms_normal_values": pack_normal_ms,
         "subnormal_share": subnormal_share,
+    }, {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+        "replaces": "none: the reference decodes with XLA einsums "
+                    "(src/repro/models/attention.py:189)",
+        "launches": decode_launches,
+        "launches_mesh": mesh_launches("decode_attention"),
+        "lockstep_err_over_limit": decode_lockstep,
+        "shape": "B=256 T=2304 Hq=64 Hkv=8 D=128 bf16 cap=0, rows at positions "
+                 "384..2207 (the qwen2-72b.batch-decode cell's layer)",
+        **{m: decode_shapes["qwen2-72b batch decode"][m]
+           for m in ("max_abs_err", "limit", "ms", "plain_ms", "bound_ms",
+                     "library_ms", "splits", "ms_one_split")},
+        "bound_by": "bytes",
+        "library_call": "scaled_dot_product_attention(attn_mask, enable_gqa)",
+        "shapes": decode_shapes,
     }], "serve": serve_stats, "intransit": intransit_stats, "train": train_stats,
         "data_parallel": dp, "serve_mesh": tp, "train_mesh": tpt, "dryrun": dry,
         "transports": {k: {m: v[m] for m in ("raw_mb_per_s", "stage_ms_median", "run_s",

@@ -14,8 +14,8 @@ from __future__ import annotations
 
 from typing import Callable
 
-LAUNCHES: dict[str, int] = {"flash_attention": 0, "ssm_scan": 0,
-                            "staging_pack": 0}
+LAUNCHES: dict[str, int] = {"decode_attention": 0, "flash_attention": 0,
+                            "ssm_scan": 0, "staging_pack": 0}
 
 
 def reset_launches() -> None:

@@ -18,6 +18,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 SOURCES = {
+    "decode_attention": _PKG / "decode_attention" / "csrc" / "decode_attention.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     "ssm_scan": _PKG / "ssm_scan" / "csrc" / "ssm_scan.cu",
     "staging_pack": _PKG / "staging_pack" / "csrc" / "staging_pack.cu",

@@ -33,14 +33,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.decode_attention import kernel as decode_kernel
+from repro_torch.kernels.decode_attention import ref as decode_ref
 from repro_torch.kernels.flash_attention.ops import gqa_attention
 from repro_torch.models import kvcache
 from repro_torch.models.layers import (
-    ParamSpec, dense, rms_norm, rope, row_dense, softcap,
+    ParamSpec, dense, rms_norm, rope, row_dense,
 )
 from repro_torch.spans import span
-
-NEG_INF = -2.0e38
 
 
 def attn_specs(cfg) -> dict[str, ParamSpec]:
@@ -69,40 +69,27 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, *, pos: torch.Tensor,
                      cache_positions: torch.Tensor, scale: float, cap: float,
                      window: int = 0, group=None) -> torch.Tensor:
-    """One-token decode, plain torch (the reference has no kernel for it).
-    q: (B,1,Hq,D); caches: (B,T,Hkv,D); pos: (B,) position of the new token;
-    cache_positions: (B,T) position held by each slot, < 0 when empty.
-    Returns (B,1,Hq,D).
+    """One-token decode. q: (B,1,Hq,D); caches: (B,T,Hkv,D); pos: (B,)
+    position of the new token; cache_positions: (B,T) position held by each
+    slot, < 0 when empty. Returns (B,1,Hq,D).
 
-    With ``group`` (an ``AxisGroup``) the cache's slots are split across its
-    ranks and this rank holds ``k_cache``'s share: each rank's f32 partial
-    (max m, sum l, unnormalised output o) is gathered, and every rank
-    combines them alike, out = sum_i e^(m_i - M) o_i / sum_i e^(m_i - M)
-    l_i, M the largest m_i (a rank none of whose slots is valid contributes
-    e^(NEG_INF - M) = 0)."""
-    B, _, Hq, D = q.shape
-    Hkv = k_cache.shape[2]
-    qg = q.reshape(B, Hkv, Hq // Hkv, D)
-    s = torch.einsum("bhgd,bthd->bhgt", qg.float(), k_cache.float())
-    s = softcap(s * scale, cap)
-    valid = (cache_positions >= 0) & (cache_positions <= pos[:, None])
-    if window:
-        valid &= (pos[:, None] - cache_positions) < window
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    A CPU tensor runs the plain version (``kernels/decode_attention/ref.py``);
+    a CUDA or meta tensor goes to the hand-written kernel, which launches or
+    raises. With ``group`` (an ``AxisGroup``) the cache's slots are split
+    across its ranks and this rank holds ``k_cache``'s share: each rank's
+    f32 partial (max m, sum l, unnormalised output o) is gathered, and every
+    rank combines them alike, out = sum_i e^(m_i - M) o_i / sum_i e^(m_i -
+    M) l_i, M the largest m_i (a rank none of whose slots is valid
+    contributes e^(-2e38 - M) = 0)."""
+    kw = dict(pos=pos, cache_positions=cache_positions, scale=scale, cap=cap,
+              window=window)
+    if q.device.type == "cpu":
+        return decode_ref.decode_attention(q, k_cache, v_cache, group=group, **kw)
     if group is None:
-        p = torch.exp(s - s.amax(-1, keepdim=True))
-        p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
-        o = torch.einsum("bhgt,bthd->bhgd", p.to(v_cache.dtype), v_cache)
-        return o.reshape(B, 1, Hq, D)
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
-    part = torch.cat([m, p.sum(-1, keepdim=True),
-                      torch.einsum("bhgt,bthd->bhgd", p, v_cache.float())], -1)
-    parts = torch.stack(group.all_gather(part))          # (n, B, Hkv, G, D+2)
-    m_all, l_all, o_all = parts[..., :1], parts[..., 1:2], parts[..., 2:]
-    w = torch.exp(m_all - m_all.amax(0))
-    o = (w * o_all).sum(0) / (w * l_all).sum(0).clamp_min(1e-30)
-    return o.to(v_cache.dtype).reshape(B, 1, Hq, D)
+        return decode_kernel.decode_attention(q, k_cache, v_cache, **kw)
+    part = decode_kernel.decode_attention(q, k_cache, v_cache, **kw,
+                                          seq_index=group.index, partial=True)
+    return decode_ref.combine(group.all_gather(part), v_cache.dtype)
 
 
 def attention(params: dict, x: torch.Tensor, *, cfg, kind: str,

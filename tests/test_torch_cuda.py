@@ -1,5 +1,5 @@
-"""The CUDA kernels (flash attention, selective scan, egress pack) against
-their plain versions on the card.
+"""The CUDA kernels (flash attention, decode attention, selective scan,
+egress pack) against their plain versions on the card.
 
 Marked `cuda`: skips without a GPU and nvcc (the kernel has no CPU or
 interpret mode). On the card: ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -15,6 +15,8 @@ must equal its result rounded to their dtype, element for element: the
 kernel performs the plain version's roundings in its order (no FMA
 contraction, the state sum by halving), so it gives the same bits. The pack
 kernel's blocks and scales must equal the plain version's byte for byte.
+The decode kernel runs against its plain version on the same inputs in the
+same dtype: per element 2**-7 max|v| in bf16, 1e-5 max|v| in f32.
 """
 import pytest
 
@@ -537,9 +539,162 @@ def test_train_step_launches_and_gradients_on_the_card(cuda_device, remat,
     reset_launches()
     state, m, e = ts.step_fn()(state, b)
     torch.cuda.synchronize()
-    assert LAUNCHES == {"flash_attention": 2 * 2 * per_micro, "ssm_scan": 0,
-                        "staging_pack": 1}
+    assert LAUNCHES == {"decode_attention": 0, "flash_attention": 2 * 2 * per_micro,
+                        "ssm_scan": 0, "staging_pack": 1}
     assert e["blocks"].shape == (8, 1024) and bool(torch.isfinite(m["loss"]))
+
+
+def _written_positions(pos, T, device):
+    """(B, T) int32: what a cache of T slots holds after row b wrote
+    positions 0..pos_b one at a time at slot p % T (-1: never written)."""
+    t = torch.arange(T, device=device)
+    rows = [torch.where(t <= p, p - (p - t) % T, torch.full_like(t, -1)) for p in pos]
+    return torch.stack(rows).to(torch.int32)
+
+
+# (T, window, the rows' positions): a cache longer than a split, its rows at
+# very different positions (0, one slot short of T, past T: wrapped), with
+# a run of empty slots inside a row's range; a window ring that has wrapped;
+# a window narrower than the cache; a cache shorter than one split
+DECODE_CACHES = [(300, 0, [0, 37, 299, 650, 120]), (100, 100, [3, 99, 250, 1000, 57]),
+                 (200, 50, [199, 120, 10, 400, 75]), (40, 0, [39, 0, 17, 41, 2])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+@pytest.mark.parametrize("G", [1, 2, 8, 48])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain(cuda_device, dtype, D, G, cap):
+    """The decode kernel against the plain version on the same inputs and
+    dtype, on every cache of DECODE_CACHES, at the launcher's split of the
+    slot axis and at one split; and a cache split over two ranks of a
+    sequence group: each rank's partial (m, l, o) against the plain
+    partial, and the two combined against the plain version over the whole
+    cache. Per element: bf16 |o - plain| <= 2**-7 max|v| (one rounding of p
+    and one of o at another place than the plain version's); f32 1e-5
+    max|v| (the order of the sums); m within 1e-5 (1 + |m|); a rank that
+    holds no valid slot of a row gives m = -2e38, as the plain one does."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.decode_attention import kernel, ref
+    Hkv = 1 if G == 48 else 3 if G == 2 else 2
+    Hq = G * Hkv
+    gen = torch.Generator(device=cuda_device).manual_seed(D * 100 + G)
+
+    def mk(*shape, mul=1.0):
+        return (torch.randn(shape, generator=gen, device=cuda_device) * mul).to(dtype)
+
+    def limit(v):
+        return (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) * float(v.float().abs().max())
+
+    kw = dict(scale=D ** -0.5, cap=cap)
+    for T, window, pos in DECODE_CACHES:
+        B = len(pos)
+        q, k, v = mk(B, 1, Hq, D, mul=3.0), mk(B, T, Hkv, D), mk(B, T, Hkv, D)
+        cp = _written_positions(pos, T, cuda_device)
+        if T == 300:
+            cp[4, 50:60] = -1                    # empty slots inside the range
+        args = dict(pos=torch.tensor(pos, dtype=torch.int32, device=cuda_device),
+                    cache_positions=cp, window=window, **kw)
+        want = ref.decode_attention(q, k, v, **args).float()
+        before = LAUNCHES["decode_attention"]
+        got = kernel.decode_attention(q, k, v, **args)
+        torch.cuda.synchronize()
+        assert LAUNCHES["decode_attention"] == before + 1
+        assert got.dtype == dtype and got.shape == want.shape
+        err = float((got.float() - want).abs().max())
+        assert err <= limit(v), (T, window, err, limit(v))
+        one = torch.empty_like(got)
+        kernel._launch(q, k, v, args["pos"], cp, one, scale=kw["scale"], cap=cap,
+                       window=window, seq_index=0, partial=False, splits=1,
+                       chunk=-(-T // 64) * 64)
+        torch.cuda.synchronize()
+        err = float((one.float() - want).abs().max())
+        assert err <= limit(v), (T, window, "one split", err)
+
+    # a global cache of 256 slots split over two ranks of 128
+    pos = [5, 130, 255, 600, 127]
+    B, T = len(pos), 256
+    q, k, v = mk(B, 1, Hq, D, mul=3.0), mk(B, T, Hkv, D), mk(B, T, Hkv, D)
+    cp = _written_positions(pos, T, cuda_device)
+    args = dict(pos=torch.tensor(pos, dtype=torch.int32, device=cuda_device), **kw)
+    parts = []
+    for r in (0, 1):
+        mine = slice(r * 128, (r + 1) * 128)
+        local = dict(cache_positions=cp[:, mine].contiguous(), **args)
+        part = kernel.decode_attention(q, k[:, mine], v[:, mine], **local,
+                                       seq_index=r, partial=True)
+        plain = ref.decode_partial(q, k[:, mine], v[:, mine], **local)
+        torch.cuda.synchronize()
+        assert part.dtype == torch.float32 and part.shape == plain.shape
+        empty = plain[..., 0] == ref.NEG_INF
+        assert torch.equal(part[..., 0] == ref.NEG_INF, empty), r
+        m_p, m_k = plain[..., 0][~empty], part[..., 0][~empty]
+        assert bool(((m_k - m_p).abs() <= 1e-5 * (1 + m_p.abs())).all()), r
+        o_p = (plain[..., 2:] / plain[..., 1:2])[~empty]
+        o_k = (part[..., 2:] / part[..., 1:2])[~empty]
+        assert float((o_k - o_p).abs().max()) <= limit(v), r
+        parts.append(part)
+    got = ref.combine(parts, dtype)
+    want = ref.decode_attention(q, k, v, cache_positions=cp, **args).float()
+    assert float((got.float() - want).abs().max()) <= limit(v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,head_dim", [("qwen2-72b", 16), ("gemma2-27b", 128)])
+def test_decode_step_launches_the_kernel_once_an_attention_layer(cuda_device, arch,
+                                                                 head_dim, monkeypatch):
+    """A decode step of a smoke model on the card launches the decode
+    kernel once an attention layer (local and global alike), and its bf16
+    logits lie within 2**-5 of their largest magnitude (four bf16 steps at
+    the largest logit's binade) of the same step's through the plain decode
+    attention: the two attentions' outputs differ by a rounding of p and
+    of o, which the layers after them carry into the logits. A planted
+    fault, the plain version reading its slots from 1 instead of 0 (an
+    off-by-one at the start of the slot range), must move the logits past
+    that limit (on the CPU it moves them 3.3 and 9.2 times the limit).
+    Dropping the newest slot instead moves qwen2-72b's smoke logits by only
+    0.19 of the limit; test_decode_kernel_matches_plain catches that fault
+    at 2.1 times its per-element limit or more in every case."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.decode_attention import ref
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.train.serve_step import ServeSetup
+    cfg = dataclasses.replace(get_config(arch).smoke(), head_dim=head_dim)
+    serve = ServeSetup(Model(cfg))
+    with torch.inference_mode():
+        params = serve.init_params(0, cuda_device)
+        toks = torch.arange(3 * 40, device=cuda_device).reshape(3, 40) % cfg.vocab_size
+        _, cache = serve.prefill_fn(max_len=64)(params, {"tokens": toks})
+        batch = {"tokens": toks[:, :1],
+                 "pos": torch.full((3,), 40, dtype=torch.int32, device=cuda_device)}
+        plain_cache = torch.utils._pytree.tree_map(torch.clone, cache)
+        fault_cache = torch.utils._pytree.tree_map(torch.clone, cache)
+        reset_launches()
+        logits, _ = serve.decode_fn()(params, cache, batch)
+        torch.cuda.synchronize()
+        n_attn = sum(k in ("dense", "local", "global", "moe") for k in cfg.layer_kinds)
+        assert n_attn > 0
+        assert LAUNCHES == {"decode_attention": n_attn, "flash_attention": 0,
+                            "ssm_scan": 0, "staging_pack": 0}
+        monkeypatch.setattr(attention_mod.decode_kernel, "decode_attention",
+                            lambda q, k, v, **kw: ref.decode_attention(q, k, v, **kw))
+        want, _ = serve.decode_fn()(params, plain_cache, batch)
+
+        def from_slot_1(q, k, v, *, cache_positions, **kw):
+            cache_positions = cache_positions.clone()
+            cache_positions[:, 0] = -1
+            return ref.decode_attention(q, k, v, cache_positions=cache_positions, **kw)
+        monkeypatch.setattr(attention_mod.decode_kernel, "decode_attention", from_slot_1)
+        fault, _ = serve.decode_fn()(params, fault_cache, batch)
+    limit = 2.0 ** -5 * float(want.float().abs().max())
+    err = float((logits.float() - want.float()).abs().max())
+    assert err <= limit, err
+    assert float((fault.float() - want.float()).abs().max()) > limit
 
 
 def test_cuda_marker_is_registered(pytestconfig):

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the selective-scan, pack and flash-attention kernels on one GPU, at
-the shapes the port's paths give them.
+"""Time the selective-scan, pack, flash-attention and decode-attention
+kernels on one GPU, at the shapes the port's paths give them.
 
-    python3 tools/bench_kernels.py [--src DIR] [--reps N] [--kernels scan,pack,flash]
+    python3 tools/bench_kernels.py [--src DIR] [--reps N] [--kernels scan,pack,flash,decode]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` kernels are
 built and timed (default: this checkout's), so that two versions can be
@@ -20,7 +20,19 @@ blocks and scales byte for byte. Shapes:
     Hkv 16, D 128, window 4096) at softcap 50 and 0; where the version
     takes head dim 256 and a prefix, recurrentgemma-9b's local layer (Hq 16,
     Hkv 1, window 2048) and paligemma-3b's (Hq 8, Hkv 1, prefix 256). Each
-    is held to ``kernel_error_limit`` against the plain version first.
+    is held to ``kernel_error_limit`` against the plain version first;
+  * decode: the ``qwen2-72b.batch-decode`` cell's attention layer, bf16:
+    B=256 rows into 2,304-slot caches, in 8 groups of 32 at positions
+    staggered as the cell's (group g at 256 + (g + 1/2) * 256, a group's
+    rows 0..31 steps apart), GQA 64/8, head dim 128; held to its plain
+    version first (per element 2**-7 max|v|), and timed beside its bound
+    (the bytes each row needs, K and V up to its position, over 3.35 TB/s),
+    its plain version and one PyTorch call (SDPA with the mask). The caches
+    (2.4 GB) are far larger than the L2. Then, at the launcher's split of
+    the slot axis and at one split, that layer and two of few rows:
+    gemma2-27b's served global layer (B=4 at position 4630 of 4632 slots,
+    GQA 32/16, softcap 50) and one row at the end of a 32k chat at
+    qwen2-72b's widths (T 32,768), each held to the same limit first.
 Prints the card (name, power limit) and, as its last line, a JSON object of
 times in ms (CUDA events over ``--reps`` launches after a warm-up).
 """
@@ -44,6 +56,12 @@ FLASH_SHAPES = {  # name: (Hq, Hkv, D, scale, softcap, window, prefix)
 }
 MESH = dict(nx=201, ny=501, nz=501)
 BLOCK = 4096
+DECODE_SHAPE = dict(B=256, T=2304, Hq=64, Hkv=8, D=128, groups=8, prompt=256, answer=2048)
+# name: (B, T, Hq, Hkv, D, softcap, the rows' positions), timed at the
+# launcher's split and at one split
+DECODE_SPLIT_SHAPES = {"serve": (4, 4632, 32, 16, 128, 50.0, [4630] * 4),
+                       "chat32k": (1, 32768, 64, 8, 128, 0.0, [32767])}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def main() -> None:
@@ -51,7 +69,7 @@ def main() -> None:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kernels", default="scan,pack",
-                    help="comma-separated: which of scan, pack, flash to time")
+                    help="comma-separated: which of scan, pack, flash, decode to time")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -92,6 +110,8 @@ def main() -> None:
         pack(out, randn, time_ms, pack_ops.quantize_blocks, pack_blocks_ref, dev)
     if "flash" in kernels:
         flash(out, randn, time_ms)
+    if "decode" in kernels:
+        decode(out, randn, time_ms, dev)
     print(card, flush=True)
     print(json.dumps(out), flush=True)
     if not all(v for k, v in out.items() if k.endswith(("_equal", "_within_limit"))):
@@ -155,6 +175,76 @@ def flash(out, randn, time_ms) -> None:
         out[f"flash_{name}_ms"] = time_ms(lambda: ops.gqa_attention(q, k, v, **kw))
         del q, k, v
         torch.cuda.empty_cache()
+
+
+def decode(out, randn, time_ms, dev) -> None:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel, ref
+    s = DECODE_SHAPE
+    B, T, Hq, Hkv, D = s["B"], s["T"], s["Hq"], s["Hkv"], s["D"]
+    per = B // s["groups"]
+    pos = torch.tensor([s["prompt"] + int((g + 0.5) * s["answer"] / s["groups"]) + i
+                        for g in range(s["groups"]) for i in range(per)],
+                       dtype=torch.int32, device=dev)
+    q = randn(B, 1, Hq, D).to(torch.bfloat16)
+    k, v = (randn(B, T, Hkv * D).to(torch.bfloat16).view(B, T, Hkv, D) for _ in range(2))
+    t = torch.arange(T, device=dev, dtype=torch.int32)
+    cp = torch.where(t[None] <= pos[:, None], t[None], -1).to(torch.int32)
+    kw = dict(pos=pos, cache_positions=cp, scale=D ** -0.5, cap=0.0)
+    want = ref.decode_attention(q, k, v, **kw).float()
+    limit = 2.0 ** -7 * float(v.float().abs().max())
+    o = kernel.decode_attention(q, k, v, **kw)
+    out["decode_within_limit"] = float((o.float() - want).abs().max()) <= limit
+    out["decode_ms"] = time_ms(lambda: kernel.decode_attention(q, k, v, **kw))
+    n = int((pos.long() + 1).clamp(max=T).sum())
+    out["decode_bound_ms"] = (n * (2 * Hkv * D * 2 + 4) + 2 * B * Hq * D * 2) \
+        / HBM_BYTES_PER_S * 1e3
+    out["decode_plain_ms"] = time_ms(lambda: ref.decode_attention(q, k, v, **kw))
+    mask = (cp >= 0) & (cp <= pos[:, None])
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None, None],
+                                              scale=kw["scale"], enable_gqa=True)
+    out["decode_sdpa_within_limit"] = \
+        float((sdpa().transpose(1, 2).float() - want).abs().max()) <= limit
+    out["decode_library_ms"] = time_ms(sdpa)
+    del k, v, cp, mask, kt, vt
+    torch.cuda.empty_cache()
+    for name, (B, T, Hq, Hkv, D, cap, at) in DECODE_SPLIT_SHAPES.items():
+        pos = torch.tensor(at, dtype=torch.int32, device=dev)
+        q = randn(B, 1, Hq, D).to(torch.bfloat16)
+        k, v = (randn(B, T, Hkv * D).to(torch.bfloat16).view(B, T, Hkv, D)
+                for _ in range(2))
+        t = torch.arange(T, device=dev, dtype=torch.int32)
+        cp = torch.where(t[None] <= pos[:, None], t[None], -1).to(torch.int32)
+        kw = dict(pos=pos, cache_positions=cp, scale=D ** -0.5, cap=cap)
+        want = ref.decode_attention(q, k, v, **kw).float()
+        limit = 2.0 ** -7 * float(v.float().abs().max())
+        splits, chunk = kernel._card_plan(dev, B, T, Hkv, Hq // Hkv, D, q.dtype)
+        one = torch.empty_like(q)
+
+        def one_split():
+            kernel._launch(q, k, v, pos, cp, one, scale=kw["scale"], cap=cap,
+                           window=0, seq_index=0, partial=False, splits=1,
+                           chunk=-(-T // kernel.ROUND) * kernel.ROUND)
+        one_split()
+        o = kernel.decode_attention(q, k, v, **kw)
+        out[f"decode_{name}_within_limit"] = max(
+            float((o.float() - want).abs().max()),
+            float((one.float() - want).abs().max())) <= limit
+        out[f"decode_{name}_splits"] = splits
+        out[f"decode_{name}_ms"] = time_ms(lambda: kernel.decode_attention(q, k, v, **kw))
+        out[f"decode_{name}_one_split_ms"] = time_ms(one_split)
+        n = int((pos.long() + 1).clamp(max=T).sum())
+        out[f"decode_{name}_bound_ms"] = (n * (2 * Hkv * D * 2 + 4) + 2 * B * Hq * D * 2) \
+            / HBM_BYTES_PER_S * 1e3
+        del q, k, v, cp, want, one, o
+        torch.cuda.empty_cache()
+    splits, _ = kernel._card_plan(dev, s["B"], s["T"], s["Hkv"], s["Hq"] // s["Hkv"],
+                                  s["D"], torch.bfloat16)
+    out["decode_splits"] = splits
 
 
 if __name__ == "__main__":
